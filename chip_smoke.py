@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's D-FINE-m serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's D-FINE-m serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --checks-only   # build + kernel checks only
@@ -9,11 +9,13 @@ Phases, in order; each raises on failure, and the script then exits non-zero
 without printing its final line:
   1. device: a CUDA card is required; prints nvidia-smi's name and power limit.
   2. build: compiles every kernel of csrc/ with nvcc, one process per source.
-  3. kernel checks at the serving path's shapes, TF32 off: each kernel
-     against its plain PyTorch version on the same inputs, then timed beside
-     its plain version and a PyTorch library formulation where one exists
-     (device time from the profiler's device events; CUDA events over
-     back-to-back calls as a second reading), with its bound on the card.
+  3. kernel checks at the shapes of the path that runs each kernel, TF32 off:
+     each kernel against its plain PyTorch version on the same inputs, then
+     timed beside its plain version and a PyTorch library formulation where
+     one exists (device time from the profiler's device events; CUDA events
+     over back-to-back calls as a second reading), with its bound on the card.
+     The stem and the MSDA forward at the serving shapes, the MSDA backward at
+     the training shapes (B = 2 and 16, 500 queries, f32 and bf16 values).
   4. serving: build_serving("m", 80, (640, 640)) with the port's own random
      init; serves uint8 batches at bs1 and bs4 with every launch counter set
      to 0 just before and read just after; checks the detections; compares
@@ -21,6 +23,13 @@ without printing its final line:
      serving ms/img at bs1 and bs16 with TF32 off, as PyTorch defaults it
      (convolutions only) and fully on; profiles bs1 requests for the device's
      busy time and idle share.
+  5. training: build_training("m", 80) (bf16 autocast, the Trainer's default)
+     takes warm-up steps on a bs16 640^2 uint8 batch with 12 GT boxes per
+     image, then timed steps with every launch counter set to 0 just before
+     and read just after (4 MSDA forward and 4 backward launches per step, no
+     stem); checks the loss terms; profiles steps for the device's busy time
+     and idle share; compares one f32 step (TF32 off, bs2 at 320^2) with the
+     same step on a CPU copy.
 Prints a {"kernels": [...]} line, the card's line, and last
 {"ok": true, "device": {...}}. --report writes every reading to a JSON file.
 Imports nothing of JAX or of the JAX package.
@@ -48,6 +57,7 @@ IMG = (640, 640)
 SHAPES = [(80, 80), (40, 40), (20, 20)]  # MSDA levels of D-FINE-m at 640^2
 POINTS = [3, 6, 3]
 LQ, HEADS, CH = 300, 8, 32
+LQ_TRAIN = 500  # 300 queries + 2 denoising groups x 2 x 50 slots
 
 
 def log(msg: str) -> None:
@@ -75,7 +85,10 @@ def cuda_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
 
 def device_spans(fn, n: int):
     """Run fn n times under torch.profiler; its device events (kernels,
-    copies, fills) as (name, start_ns, duration_ns)."""
+    copies, fills) as (name, start_ns, duration_ns). User annotations
+    (record_function ranges that the profiler mirrors on the device's
+    timeline, such as the optimizer's step) are not device work and are left
+    out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -85,7 +98,8 @@ def device_spans(fn, n: int):
             fn()
         torch.cuda.synchronize()
     return [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
+            and not getattr(e, "is_user_annotation", lambda: False)()]
 
 
 def busy_ms(spans) -> float:
@@ -231,23 +245,23 @@ def check_stem(torch, report):
     return row
 
 
-def msda_inputs(torch, B, g, dtype):
+def msda_inputs(torch, B, g, dtype, Lq=LQ):
     Lv = sum(h * w for h, w in SHAPES)
     P = sum(POINTS)
     value = torch.randn(B, Lv, HEADS, CH, generator=g).to(dtype)
-    loc = torch.rand(B, LQ, HEADS, P, 2, generator=g) * 1.2 - 0.1
+    loc = torch.rand(B, Lq, HEADS, P, 2, generator=g) * 1.2 - 0.1
     loc[0, 0, 0, 0] = torch.tensor([0.0, 0.0])     # corners and edges
     loc[0, 1, 0, 0] = torch.tensor([1.0, 1.0])
     loc[0, 2, 1, 3] = torch.tensor([-0.2, 0.5])    # partly out
     loc[0, 3, 2, 5] = torch.tensor([0.999, 0.001])
     loc[-1, 4, 3, -1] = torch.tensor([7.5, -3.0])  # far out of range
-    attn = torch.softmax(torch.randn(B, LQ, HEADS, P, generator=g), dim=-1)
+    attn = torch.softmax(torch.randn(B, Lq, HEADS, P, generator=g), dim=-1)
     return value.cuda().contiguous(), loc.cuda().contiguous(), attn.cuda().contiguous()
 
 
-def msda_work(torch, value, loc, attn):
-    """Bytes and flops this data needs: each value row that a valid corner
-    touches, read once; loc/attn read once; out written once."""
+def msda_rows(torch, value, loc):
+    """The value rows that valid corners touch (unique, counted once) and the
+    number of valid corners: what this data needs of the value map."""
     B, Lv, h, c = value.shape
     keys, n_valid, p_off, start = [], 0, 0, 0
     bidx = torch.arange(B, device=loc.device).view(B, 1, 1, 1)
@@ -264,11 +278,32 @@ def msda_work(torch, value, loc, attn):
             n_valid += int(valid.sum())
         p_off += P
         start += H * W
-    n_rows = torch.unique(torch.cat(keys)).numel()
+    return torch.unique(torch.cat(keys)).numel(), n_valid
+
+
+def msda_work(torch, value, loc, attn):
+    """Bytes and flops this data needs: each value row that a valid corner
+    touches, read once; loc/attn read once; out written once."""
+    B, Lv, h, c = value.shape
+    n_rows, n_valid = msda_rows(torch, value, loc)
     bytes_ = (n_rows * c * value.element_size() + loc.numel() * 4 + attn.numel() * 4
               + B * loc.shape[1] * h * c * 4)
     flops = c * (2 * n_valid + 2 * attn.numel())
     return bytes_, flops, n_rows
+
+
+def msda_bwd_work(torch, value, loc, attn):
+    """Bytes and flops the backward needs on this data: the touched value
+    rows, loc, attn and grad_out read once; dvalue (value's dtype, every
+    position), dloc and dattn written once. Per valid corner and channel:
+    the dvalue term (2 flops), the three <g, .> sums (2 each) and the
+    corner's weight and differences (~4): 12 flops."""
+    B, Lv, h, c = value.shape
+    n_rows, n_valid = msda_rows(torch, value, loc)
+    Lq = loc.shape[1]
+    bytes_ = (n_rows * c * value.element_size() + 2 * (loc.numel() * 4 + attn.numel() * 4)
+              + B * Lq * h * c * 4 + value.numel() * value.element_size())
+    return bytes_, 12 * c * n_valid, n_rows
 
 
 def msda_grid_sample(torch, value, loc, attn):
@@ -292,13 +327,16 @@ def msda_grid_sample(torch, value, loc, attn):
 
 
 def check_msda(torch, report):
+    """msda_fwd against msda_fwd_plain at the serving shapes (B = 1 and 4,
+    300 queries) and the training step's (B = 16, 500 queries), with f32 and
+    bf16 value maps; timed at bs1 as serving calls it."""
     from custom_d_fine_tpu_torch.ops.msda import level_start_index, msda_fwd, msda_fwd_plain
 
     g = torch.Generator().manual_seed(2)
     starts = level_start_index(SHAPES)
     errs = {}
-    for B in (1, 4):
-        v32, loc, attn = msda_inputs(torch, B, g, torch.float32)
+    for B, Lq in ((1, LQ), (4, LQ), (16, LQ_TRAIN)):  # serving, then the training step's
+        v32, loc, attn = msda_inputs(torch, B, g, torch.float32, Lq=Lq)
         got = msda_fwd(v32, SHAPES, starts, loc, attn, POINTS)
         torch.cuda.synchronize()
         want = msda_fwd_plain(v32, SHAPES, starts, loc, attn, POINTS)
@@ -315,13 +353,13 @@ def check_msda(torch, report):
         e16_f32 = (got16 - want).abs().max().item() / scale
         lib = msda_grid_sample(torch, v32, loc, attn)
         elib = (lib - want).abs().max().item()
-        log(f"[msda] B={B} f32 max_abs_err={e32:.3e} (rtol=atol=1e-5) | bf16 value: "
+        log(f"[msda] B={B} Lq={Lq} f32 max_abs_err={e32:.3e} (rtol=atol=1e-5) | bf16 value: "
             f"vs plain on the same bf16 {e16:.3e} (1e-5), vs f32 scaled {e16_f32:.3e} "
             f"(0.02) | grid_sample formulation vs plain {elib:.3e}")
         if not (ok32 and e16 <= 1e-5 and e16_f32 <= 0.02 and torch.isfinite(got).all()):
             raise AssertionError(f"msda kernel disagrees with its plain version: "
                                  f"{e32}, {e16}, {e16_f32}")
-        errs[B] = (e32, e16)
+        errs[(B, Lq)] = (e32, e16)
     # timing at the serving path's shapes: bs1, bf16 value as serving passes it
     v32, loc, attn = msda_inputs(torch, 1, g, torch.float32)
     v16 = v32.to(torch.bfloat16)
@@ -359,8 +397,75 @@ def check_msda(torch, report):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": "B=1 Lq=300 8x32 levels 80/40/20 points 3/6/3, bf16 value",
+            "checked_shapes": "B=1 and 4 at Lq=300, B=16 at Lq=500; f32 and bf16 value",
             "cuda_events_ms": r["cuda_events_ms"], "plain_cuda_events_ms": r["plain_cuda_events_ms"],
             "library_cuda_events_ms": r["library_cuda_events_ms"]}
+
+
+def check_msda_bwd(torch, report):
+    """msda_bwd against msda_bwd_plain at the training shapes (B = 2 and 16,
+    500 queries), f32 and bf16 value maps; timed at bs16 with a bf16 value
+    map, as the bf16 training step gives it. Errors are scaled by the
+    largest entry of each gradient: 1e-5 for f32 sums in another order (dvalue
+    through atomics), 8e-3 for a bf16 dvalue (one bf16 rounding of the same
+    f32 sum)."""
+    from custom_d_fine_tpu_torch.ops.msda import level_start_index, msda_bwd, msda_bwd_plain
+
+    g = torch.Generator().manual_seed(4)
+    starts = level_start_index(SHAPES)
+    worst, worst_scaled = 0.0, 0.0
+    for B in (2, 16):
+        for dtype in (torch.float32, torch.bfloat16):
+            v, loc, attn = msda_inputs(torch, B, g, dtype, Lq=LQ_TRAIN)
+            grad = torch.randn(B, LQ_TRAIN, HEADS * CH, generator=g).cuda()
+            got = msda_bwd(v, SHAPES, starts, loc, attn, grad, POINTS)
+            torch.cuda.synchronize()
+            want = msda_bwd_plain(v, SHAPES, starts, loc, attn, grad, POINTS)
+            torch.cuda.synchronize()
+            msg = []
+            for name, a, b in zip(("dvalue", "dloc", "dattn"), got, want):
+                a, b = a.float(), b.float()
+                e = (a - b).abs().max().item()
+                scaled = e / max(b.abs().max().item(), 1e-6)
+                tol = 8e-3 if (name == "dvalue" and dtype == torch.bfloat16) else 1e-5
+                if not (torch.isfinite(a).all() and scaled <= tol):
+                    raise AssertionError(f"msda_bwd {name} (B={B}, {dtype}) disagrees with its "
+                                         f"plain version: max_abs_err {e}, scaled {scaled}")
+                worst, worst_scaled = max(worst, e), max(worst_scaled, scaled)
+                msg.append(f"{name} {e:.3e} (scaled {scaled:.2e}, tol {tol:g})")
+            log(f"[msda_bwd] B={B} Lq={LQ_TRAIN} {str(dtype)[6:]} value: " + " | ".join(msg))
+    v, loc, attn = msda_inputs(torch, 16, g, torch.bfloat16, Lq=LQ_TRAIN)
+    grad = torch.randn(16, LQ_TRAIN, HEADS * CH, generator=g).cuda()
+    t_k = time_call(lambda: msda_bwd(v, SHAPES, starts, loc, attn, grad, POINTS))
+    t_p = time_call(lambda: msda_bwd_plain(v, SHAPES, starts, loc, attn, grad, POINTS), iters=5)
+    try:  # the backward of the grid_sample formulation: a yardstick the port never calls
+        leaves = [t.detach().clone().requires_grad_() for t in (v, loc, attn)]
+        out = msda_grid_sample(torch, *leaves)
+        t_l = time_call(lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True))
+    except RuntimeError as e:
+        log(f"[msda_bwd] grid_sample backward on a bf16 value failed ({e}); library_ms null")
+        t_l = {"ms": None, "cuda_events_ms": None}
+    bytes_, flops, n_rows = msda_bwd_work(torch, v, loc, attn)
+    b_ms, b_by = bound(bytes_, flops)
+    lib = "n/a" if t_l["ms"] is None else "%.4f" % t_l["ms"]
+    log(f"[msda_bwd] bs16 bf16 value, device time: kernel {t_k['ms']:.4f} ms | plain "
+        f"{t_p['ms']:.4f} ms | grid_sample backward {lib} ms (CUDA events over back-to-back "
+        f"calls: {t_k['cuda_events_ms']:.4f} | {t_p['cuda_events_ms']:.4f}) | bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}; {bytes_ / 1e6:.2f} MB, {n_rows} value rows)")
+    row = {"name": "msda_bwd", "route": "cuda",
+           "source": "custom_d_fine_tpu_torch/csrc/msda_bwd.cu",
+           "replaces": "custom_d_fine_tpu/ops/pallas/msda_sep.py:248",
+           "tpu_kernels": ["custom_d_fine_tpu/ops/pallas/msda_sep.py:248 _sep_bwd_kernel",
+                           "custom_d_fine_tpu/ops/pallas/msda.py:181 _level_bwd_kernel"],
+           "max_abs_err": worst, "max_scaled_err": worst_scaled, "ms": t_k["ms"],
+           "plain_ms": t_p["ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l["ms"],
+           "shape": "B=16 Lq=500 8x32 levels 80/40/20 points 3/6/3, bf16 value",
+           "bytes": bytes_, "flops": flops, "value_rows": n_rows,
+           "cuda_events_ms": t_k["cuda_events_ms"],
+           "plain_cuda_events_ms": t_p["cuda_events_ms"],
+           "library_cuda_events_ms": t_l["cuda_events_ms"]}
+    report["msda_bwd_calls"] = row
+    return row
 
 
 # ---------------------------------------------------------------- phase 4
@@ -400,7 +505,7 @@ def compare_detections(got, want, img, tol=1e-4):
     return err, n_keep
 
 
-def phase_serving(torch, report, kernel_rows):
+def phase_serving(torch, report):
     from custom_d_fine_tpu_torch.configs import get_model_config
     from custom_d_fine_tpu_torch.deploy.reparam import convert_to_deploy
     from custom_d_fine_tpu_torch.deploy.serving import build_serving, make_serving_forward
@@ -434,9 +539,7 @@ def phase_serving(torch, report, kernel_rows):
     if launches != {"stem_fwd": n_fwd, "msda_fwd": n_layers * n_fwd}:
         raise AssertionError(f"expected {n_fwd} stem and {n_layers * n_fwd} MSDA launches, "
                              f"got {launches}")
-    for row in kernel_rows:
-        row["launches"] = launches[row["name"]]
-    report["launches"] = launches
+    report["launches_serving"] = launches
 
     # ---- the same forward on a CPU copy. Conv kernels x sqrt(6) (kaiming
     # scale): with torch's default scale a random model's features fade
@@ -488,16 +591,16 @@ def phase_serving(torch, report, kernel_rows):
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     report["profile_bs1_default"] = profile(torch, lambda: fn(batches[1]),
-                                            timing["bs1_default"]["median"])
+                                            timing["bs1_default"]["median"], "serving bs1")
     torch.backends.cudnn.allow_tf32 = False
+    return launches
 
 
-def profile(torch, step, wall_ms):
-    """Device time by kernel over 10 bs1 requests (torch.profiler's device
-    events), and the device's idle share against `wall_ms`, the same request
+def profile(torch, step, wall_ms, what, n=10):
+    """Device time by kernel over n calls of `step` (torch.profiler's device
+    events), and the device's idle share against `wall_ms`, the same call
     timed without the profiler. An extra reading that does not decide the
     run: "not measured" when the profiler records no device time."""
-    n = 10
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -515,21 +618,148 @@ def profile(torch, step, wall_ms):
         by_name[name] = (t + d, c + 1)
     busy = busy_ms(spans) / n
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    out = {"wall_ms_per_req_unprofiled": wall_ms, "device_busy_ms_per_req": busy,
-           "idle_share": max(0.0, 1 - busy / wall_ms), "kernels_per_req": len(spans) / n,
+    out = {"wall_ms_per_call_unprofiled": wall_ms, "device_busy_ms_per_call": busy,
+           "idle_share": max(0.0, 1 - busy / wall_ms), "kernels_per_call": len(spans) / n,
            "top": [{"kernel": k[:120], "ms": t / 1e6 / n, "calls": c / n}
                    for k, (t, c) in rows[:25]]}
-    log(f"[profile] bs1: device busy {busy:.3f} ms of {wall_ms:.3f} ms/req unprofiled, "
-        f"idle share {out['idle_share']:.2f}, {len(spans) / n:.0f} device events/req")
+    log(f"[profile] {what}: device busy {busy:.3f} ms of {wall_ms:.3f} ms/call unprofiled, "
+        f"idle share {out['idle_share']:.2f}, {len(spans) / n:.0f} device events/call")
     for r in out["top"][:8]:
         log(f"[profile]   {r['ms']:.4f} ms  x{r['calls']:g}  {r['kernel'][:90]}")
     return out
 
 
+# ---------------------------------------------------------------- phase 5
+def train_batch(torch, B, img, g, max_gt, n_gt=12, num_classes=80):
+    """tools/bench_train.py:70-85: uint8 images, n_gt valid GT boxes of
+    max_gt per image (cxcy in [0.2, 0.8], wh in [0.05, 0.3])."""
+    return {"images": torch.randint(0, 256, (B, *img, 3), dtype=torch.uint8, generator=g),
+            "labels": torch.randint(0, num_classes, (B, max_gt), generator=g),
+            "boxes": torch.cat([torch.rand(B, max_gt, 2, generator=g) * 0.6 + 0.2,
+                                torch.rand(B, max_gt, 2, generator=g) * 0.25 + 0.05], -1),
+            "valid": (torch.arange(max_gt) < n_gt)[None].expand(B, -1).contiguous()}
+
+
+def compare_train_step(torch, report, cfg):
+    """One f32 step (TF32 off, bs2 at 320^2) on the card and on a CPU copy
+    from the same weights, batch and denoising draws. Conv kernels x sqrt(6),
+    as in the serving comparison, so that query selection does not tie.
+    total_loss and each loss term at rtol 1e-4 (atol 1e-6; measured 6.9e-6);
+    grad_norm at rtol 1e-3 (measured 1.6e-4) and the update (in units of the step's learning rate) within
+    0.05 for all but 2% of the elements and within 2.05 for every one: a
+    ReLU input within rounding of zero sends its position's gradient one way
+    on one side and the other way on the other, and Adam's first step is
+    ~sign(gradient) * lr, so a gradient within noise of zero may flip."""
+    from custom_d_fine_tpu_torch.models.dfine import build_model
+    from custom_d_fine_tpu_torch.train.train_step import build_training
+
+    ref = build_model(cfg, num_classes=80, seed=1)
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(math.sqrt(6.0))
+    sd = ref.state_dict()
+    batch = train_batch(torch, 2, (320, 320), torch.Generator().manual_seed(6), cfg.max_gt)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dev in ("cuda", "cpu"):
+        step, state = build_training(cfg, 80, device=dev, bf16=False, state_dict=sd,
+                                     use_ema=False)
+        t0 = time.perf_counter()
+        state, m = step(state, {k: v.to(dev) for k, v in batch.items()},
+                        torch.Generator().manual_seed(7))
+        lr = state.optimizer.adamw.param_groups[0]["lr"]
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+        log(f"[train] f32 step bs2 320^2 on {dev} in {time.perf_counter() - t0:.1f} s")
+    (mg, pg), (mc, pc) = out["cuda"], out["cpu"]
+    for k in mc:
+        tol = dict(rtol=1e-3, atol=0.0) if k == "grad_norm" else dict(rtol=1e-4, atol=1e-6)
+        if not math.isclose(mg[k], mc[k], rel_tol=tol["rtol"], abs_tol=tol["atol"]):
+            raise AssertionError(f"train step {k}: card {mg[k]} vs CPU {mc[k]} ({tol})")
+    n_far, n_all, worst = 0, 0, 0.0
+    for k, w in sd.items():
+        if not w.is_floating_point() or "running" in k:
+            continue
+        d = ((pg[k] - w).double() - (pc[k] - w).double()).abs() / lr
+        n_far += int((d > 0.05).sum())
+        n_all += d.numel()
+        worst = max(worst, d.max().item())
+    if worst > 2.05 or n_far > 0.02 * n_all:
+        raise AssertionError(f"train step updates differ: {n_far} of {n_all} elements beyond "
+                             f"0.05 lr, largest {worst:.3f} lr")
+    log(f"[train] card (f32, TF32 off) vs CPU: total_loss {mg['total_loss']:.6f} vs "
+        f"{mc['total_loss']:.6f}, grad_norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; "
+        f"updates: {n_far} of {n_all} elements beyond 0.05 lr, largest {worst:.3f} lr")
+    report["train_cpu_compare"] = {"card": mg, "cpu": mc, "updates_beyond_0.05lr": n_far,
+                                   "updates_total": n_all, "update_max_diff_lr": worst}
+
+
+def phase_training(torch, report, batch_size=16, n_warmup=3, n_steps=10):
+    from custom_d_fine_tpu_torch.configs import get_model_config
+    from custom_d_fine_tpu_torch.ops.msda import msda_bwd, msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+    from custom_d_fine_tpu_torch.train.train_step import build_training
+
+    cfg = get_model_config("m")
+    B = batch_size
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults; autocast runs in bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    step, state = build_training("m", 80, seed=0)
+    log(f"[train] build_training('m', 80) on {next(state.model.parameters()).device} "
+        f"(bf16 autocast, EMA on) in {time.perf_counter() - t0:.1f} s")
+    batch = {k: v.cuda() for k, v in
+             train_batch(torch, B, IMG, torch.Generator().manual_seed(5), cfg.max_gt).items()}
+    dn = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    for _ in range(n_warmup):
+        state, m = step(state, batch, dn)
+    torch.cuda.synchronize()
+    log(f"[train] {n_warmup} warm-up steps in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = msda_fwd.launches = msda_bwd.launches = 0
+    times, terms = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, dn)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        terms.append(m)
+    launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches,
+                "msda_bwd": msda_bwd.launches}
+    n_layers = cfg.decoder.num_layers
+    want = {"stem_fwd": 0, "msda_fwd": n_layers * n_steps, "msda_bwd": n_layers * n_steps}
+    log(f"[train] {n_steps} timed steps: launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    values = {k: [float(m[k]) for m in terms] for k in terms[0]}
+    bad = [k for k, v in values.items() if not all(math.isfinite(x) for x in v)]
+    if bad:
+        raise AssertionError(f"non-finite training metrics: {bad}")
+    ms = statistics.median(times)
+    q = statistics.quantiles(times, n=4)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] D-FINE-m 640^2 bs{B} bf16: {ms:.2f} ms/step median (p25 {q[0]:.2f}, p75 "
+        f"{q[2]:.2f}; n={n_steps}), {B * 1e3 / ms:.1f} img/s; peak device memory {peak:.2f} GB")
+    log(f"[train] last step: total_loss {values['total_loss'][-1]:.4f}, grad_norm "
+        f"{values['grad_norm'][-1]:.4f}, {len(values) - 2} loss terms, all finite")
+    report["training"] = {"batch": B, "img": list(IMG), "ms_per_step": times,
+                          "ms_per_step_median": ms, "img_per_s": B * 1e3 / ms,
+                          "peak_mem_gb": peak, "metrics": values, "launches": launches}
+    report["profile_train_bs16"] = profile(torch, lambda: step(state, batch, dn), ms,
+                                           "training bs16", n=5)
+    compare_train_step(torch, report, cfg)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checks-only", action="store_true",
-                    help="stop after the kernel checks (no serving phase)")
+                    help="stop after the kernel checks (no serving or training phase)")
     ap.add_argument("--verbose-build", action="store_true", help="nvcc -Xptxas -v")
     ap.add_argument("--report", metavar="PATH", help="write every reading to this JSON file")
     args = ap.parse_args()
@@ -542,11 +772,16 @@ def main() -> int:
         phase_build(report, args.verbose_build)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        rows = [check_stem(torch, report), check_msda(torch, report)]
+        rows = [check_stem(torch, report), check_msda(torch, report),
+                check_msda_bwd(torch, report)]
+        paths = {}
         if not args.checks_only:
-            phase_serving(torch, report, rows)
-        for row in rows:
-            row.setdefault("launches", None)
+            paths["serving"] = phase_serving(torch, report)
+            paths["training"] = phase_training(torch, report)
+        for row in rows:  # each path's launches, from its own zeroed counters
+            by_path = {p: c[row["name"]] for p, c in paths.items() if c.get(row["name"])}
+            row["launches"] = sum(by_path.values()) if paths else None
+            row["launches_by_path"] = by_path
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
 

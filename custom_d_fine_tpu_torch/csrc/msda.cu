@@ -24,22 +24,9 @@
 // no divergence); 8 warps per block give the SM many independent rows in
 // flight. Channel counts above 32 loop over groups of 32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MSDA_MAX_LEVELS 8
-#define MSDA_WARPS 8
-
-struct Levels {
-  int n;
-  int H[MSDA_MAX_LEVELS], W[MSDA_MAX_LEVELS], start[MSDA_MAX_LEVELS], P[MSDA_MAX_LEVELS];
-};
-
-__device__ __forceinline__ float load_val(const float* v, long i) { return __ldg(v + i); }
-__device__ __forceinline__ float load_val(const __nv_bfloat16* v, long i) {
-  return __bfloat162float(v[i]);
-}
+#include "msda_common.cuh"
 
 template <typename T>
 __global__ void __launch_bounds__(32 * MSDA_WARPS) msda_fwd_kernel(
@@ -67,22 +54,15 @@ __global__ void __launch_bounds__(32 * MSDA_WARPS) msda_fwd_kernel(
       const int H = lv.H[l], W = lv.W[l];
       const T* vl = vbase + (long)lv.start[l] * vrow + ch;
       for (int k = 0; k < lv.P[l]; ++k, ++p) {
-        const float x = loc_p[2 * p] * W - 0.5f;
-        const float y = loc_p[2 * p + 1] * H - 0.5f;
-        const float x0f = floorf(x), y0f = floorf(y);  // floor, not truncation
-        const float tx = x - x0f, ty = y - y0f;
-        // clamp before the int cast: a far-out point only has to stay out of range
-        const int x0 = (int)fminf(fmaxf(x0f, -2.f), (float)W);
-        const int y0 = (int)fminf(fmaxf(y0f, -2.f), (float)H);
-        const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
-        const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
+        const Corners q = corners(loc_p[2 * p], loc_p[2 * p + 1], H, W);
+        const float tx = q.tx, ty = q.ty;
         float s = 0.f;
         if (active) {
-          const long r0 = ((long)y0 * W + x0) * vrow;
-          if (vy0 && vx0) s += load_val(vl, r0) * ((1.f - tx) * (1.f - ty));
-          if (vy0 && vx1) s += load_val(vl, r0 + vrow) * (tx * (1.f - ty));
-          if (vy1 && vx0) s += load_val(vl, r0 + W * vrow) * ((1.f - tx) * ty);
-          if (vy1 && vx1) s += load_val(vl, r0 + (W + 1) * vrow) * (tx * ty);
+          const long r0 = ((long)q.y0 * W + q.x0) * vrow;
+          if (q.vy0 && q.vx0) s += load_val(vl, r0) * ((1.f - tx) * (1.f - ty));
+          if (q.vy0 && q.vx1) s += load_val(vl, r0 + vrow) * (tx * (1.f - ty));
+          if (q.vy1 && q.vx0) s += load_val(vl, r0 + W * vrow) * ((1.f - tx) * ty);
+          if (q.vy1 && q.vx1) s += load_val(vl, r0 + (W + 1) * vrow) * (tx * ty);
         }
         acc += s * attn_p[p];
       }
@@ -95,17 +75,9 @@ __global__ void __launch_bounds__(32 * MSDA_WARPS) msda_fwd_kernel(
 extern "C" int msda_fwd(const void* value, int value_bf16, const void* loc, const void* attn,
                         void* out, int B, int Lv, int nh, int c, int Lq, int n_levels,
                         const int* level_info, void* stream) {
-  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
   Levels lv;
-  lv.n = n_levels;
-  int Ptot = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.H[l] = level_info[4 * l];
-    lv.W[l] = level_info[4 * l + 1];
-    lv.start[l] = level_info[4 * l + 2];
-    lv.P[l] = level_info[4 * l + 3];
-    Ptot += lv.P[l];
-  }
+  const int Ptot = read_levels(n_levels, level_info, &lv);
+  if (Ptot < 0) return (int)cudaErrorInvalidValue;
   const long items = (long)B * Lq * nh;
   if (items == 0) return 0;
   const unsigned grid = (unsigned)((items + MSDA_WARPS - 1) / MSDA_WARPS);

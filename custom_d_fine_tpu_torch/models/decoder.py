@@ -1,12 +1,13 @@
-"""DFINETransformer decoder (PyTorch), eval path.
+"""DFINETransformer decoder (PyTorch): eval and train paths.
 
 Counterpart of custom_d_fine_tpu/models/decoder.py; parity target reference
 src/d_fine/arch/dfine_decoder.py: MSDeformableAttention (:49-178),
 TransformerDecoderLayer (:181-255), Gate (:258-271), Integral (:274-295),
 LQE (:298-313), TransformerDecoder FDR loop (:373-524), DFINETransformer
-(:527-1057). Only the eval outputs (pred_logits, pred_boxes) are built here:
-denoising, the aux/pre/enc training outputs and the mask head come with later
-slices. Every head is still created, so that checkpoints load whole.
+(:527-1057). In train mode it adds the CDN denoising queries and returns the
+aux, pre, enc and dn output sets the criterion reads, with .detach() exactly
+where the JAX package has stop_gradient. The mask head comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ from torch import nn
 
 from ..ops.boxes import inverse_sigmoid
 from ..ops.fdr import distance2bbox, weighting_function
-from ..ops.msda import level_start_index, msda_fwd
+from ..ops.msda import msda
+from .denoising import build_cdn_group, build_dn_attn_mask, dn_layout
 from .layers import LN_EPS, MLP, BatchNorm, MultiHeadAttention, get_activation
 
 
 
 class MSDeformableAttention(nn.Module):
     """Multi-scale deformable attention (reference dfine_decoder.py:49-178).
-    The sampling runs through the MSDA kernel wrapper ops/msda.py:msda_fwd."""
+    The sampling runs through ops/msda.py:msda, whose forward and backward
+    are the MSDA kernels."""
 
     def __init__(self, embed_dim: int, num_heads: int, num_levels: int,
                  num_points: Sequence[int], offset_scale: float = 0.5,
@@ -55,8 +58,7 @@ class MSDeformableAttention(nn.Module):
         offset = (offsets * self.num_points_scale[None, None, None, :, None]
                   * reference_points[:, :, None, None, 2:] * self.offset_scale)
         loc = reference_points[:, :, None, None, :2] + offset
-        return msda_fwd(value, spatial_shapes, level_start_index(spatial_shapes),
-                        loc.contiguous(), attn.contiguous(), self.num_points)
+        return msda(value, spatial_shapes, loc, attn, self.num_points)
 
 
 class Gate(nn.Module):
@@ -161,9 +163,11 @@ class DFINETransformer(nn.Module):
                  feat_strides: Sequence[int] = (8, 16, 32), num_levels: int = 3,
                  num_points: Sequence[int] = (3, 6, 3), nhead: int = 8, num_layers: int = 6,
                  dim_feedforward: int = 1024, activation: str = "relu",
-                 num_denoising: int = 100, eval_idx: int = -1, eps: float = 1e-2,
-                 reg_max: int = 32, reg_scale: float = 4.0,
-                 cross_attn_method: str = "default", query_select_method: str = "default"):
+                 num_denoising: int = 100, dn_max_gt: int = 50,
+                 label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0,
+                 eval_idx: int = -1, eps: float = 1e-2, reg_max: int = 32,
+                 reg_scale: float = 4.0, cross_attn_method: str = "default",
+                 query_select_method: str = "default"):
         super().__init__()
         if query_select_method != "default":
             raise NotImplementedError(
@@ -173,6 +177,8 @@ class DFINETransformer(nn.Module):
         self.num_levels, self.nhead, self.num_layers = num_levels, nhead, num_layers
         self.eval_idx = eval_idx if eval_idx >= 0 else num_layers + eval_idx
         self.eps, self.reg_max, self.reg_scale = eps, reg_max, reg_scale
+        self.num_denoising, self.dn_max_gt = num_denoising, dn_max_gt
+        self.label_noise_ratio, self.box_noise_scale = label_noise_ratio, box_noise_scale
 
         self.input_proj = nn.ModuleList()
         for ch in feat_channels:
@@ -189,7 +195,7 @@ class DFINETransformer(nn.Module):
             [TransformerDecoderLayer(C, nhead, dim_feedforward, activation, num_levels,
                                      num_points, cross_attn_method) for _ in range(num_layers)],
             [LQE(4, 64, 2, reg_max) for _ in range(num_layers)])
-        if num_denoising > 0:  # train-only; kept so that checkpoints load whole
+        if num_denoising > 0:
             self.denoising_class_embed = nn.Embedding(num_classes + 1, C,
                                                       padding_idx=num_classes)
         self.query_pos_head = MLP(4, 2 * C, C, 2)
@@ -203,31 +209,57 @@ class DFINETransformer(nn.Module):
             MLP(C, C, 4 * (reg_max + 1), 3) for _ in range(num_layers))
         self.register_buffer("project", weighting_function(reg_max, 0.5, reg_scale),
                              persistent=False)
-        self._anchor_cache: Dict = {}
+        self._const_cache: Dict = {}
 
-    def _anchors(self, spatial_shapes, device):
-        key = (tuple(spatial_shapes), device)
-        if key not in self._anchor_cache:
-            a, v = generate_anchors(spatial_shapes, eps=self.eps)
-            self._anchor_cache[key] = (torch.from_numpy(a).to(device),
-                                       torch.from_numpy(v).to(device))
-        return self._anchor_cache[key]
+    def _const(self, key, make, device):
+        """Static numpy constants (anchors, the DN attention mask) on `device`."""
+        key = (key, device)
+        if key not in self._const_cache:
+            self._const_cache[key] = tuple(torch.from_numpy(a).to(device) for a in make())
+        return self._const_cache[key]
 
     def forward(self, feats: Sequence[torch.Tensor],
-                msda_value_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-        """NCHW PAN outputs -> {"pred_logits" [B,Q,C], "pred_boxes" [B,Q,4] cxcywh}.
-        msda_value_dtype: dtype of the MSDA value map (None keeps the memory's
-        dtype; serving on the card passes bf16, as the TPU serving path does)."""
+                msda_value_dtype: Optional[torch.dtype] = None,
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                dn_draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, object]:
+        """NCHW PAN outputs -> {"pred_logits" [B,Q,C], "pred_boxes" [B,Q,4] cxcywh}
+        and, in train mode, the criterion's output sets. msda_value_dtype: dtype
+        of the MSDA value map (None keeps the memory's dtype; the card's serving
+        and bf16 training pass bf16, as the TPU's pallas_sep_fast does).
+        targets {labels [B,G], boxes [B,G,4], valid [B,G]} and dn_draws
+        (models/denoising.draw_dn_noise) switch on the denoising queries in
+        train mode."""
         C = self.hidden_dim
+        train = self.training
         proj = [p(f) for p, f in zip(self.input_proj, feats)]
         for i in range(len(feats), self.num_levels):
             proj.append(self.input_proj[i](feats[-1] if i == len(feats) else proj[-1]))
         B = proj[0].shape[0]
-        spatial_shapes = [(int(f.shape[2]), int(f.shape[3])) for f in proj]
+        spatial_shapes = tuple((int(f.shape[2]), int(f.shape[3])) for f in proj)
         memory = torch.cat([f.permute(0, 2, 3, 1).reshape(B, -1, C) for f in proj], dim=1)
+        dev = memory.device
+
+        # ---- denoising group (train only; static layout)
+        use_dn = train and self.num_denoising > 0 and targets is not None
+        num_dn, attn_mask = 0, None
+        if use_dn:
+            if dn_draws is None:
+                raise ValueError("train mode with targets needs dn_draws "
+                                 "(models/denoising.draw_dn_noise)")
+            num_group, num_dn, _ = dn_layout(self.num_denoising, self.dn_max_gt,
+                                             self.num_queries)
+            dn = build_cdn_group(targets["labels"], targets["boxes"], targets["valid"],
+                                 dn_draws, num_classes=self.num_classes, num_group=num_group,
+                                 dn_max_gt=self.dn_max_gt,
+                                 label_noise_ratio=self.label_noise_ratio,
+                                 box_noise_scale=self.box_noise_scale)
+            dn_content = self.denoising_class_embed(dn["labels"]) * dn["valid"][..., None]
+            attn_mask, = self._const(("dn_mask", num_group), lambda: (build_dn_attn_mask(
+                num_group, self.dn_max_gt, self.num_queries),), dev)
 
         # ---- anchors + encoder-token query selection (reference :803-910)
-        anchors, valid = self._anchors(spatial_shapes, memory.device)
+        anchors, valid = self._const(("anchors", spatial_shapes),
+                                     lambda: generate_anchors(spatial_shapes, eps=self.eps), dev)
         out_mem = self.enc_output(valid.to(memory.dtype) * memory)
         enc_logits = self.enc_score_head(out_mem)
         topk_ind = enc_logits.max(-1).values.topk(self.num_queries, dim=1).indices
@@ -237,6 +269,13 @@ class DFINETransformer(nn.Module):
 
         content = gather_q(out_mem)
         ref_unact = self.enc_bbox_head(content) + gather_q(anchors.expand(B, -1, -1))
+        if train:
+            enc_aux = [{"pred_logits": gather_q(enc_logits),
+                        "pred_boxes": torch.sigmoid(ref_unact)}]
+            content, ref_unact = content.detach(), ref_unact.detach()
+        if use_dn:
+            ref_unact = torch.cat([dn["bbox_unact"].to(ref_unact.dtype), ref_unact], dim=1)
+            content = torch.cat([dn_content.to(content.dtype), content], dim=1)
 
         # ---- FDR decoder loop (reference TransformerDecoder.forward :429-524)
         value = memory.reshape(B, memory.shape[1], self.nhead, C // self.nhead)
@@ -247,23 +286,59 @@ class DFINETransformer(nn.Module):
         ref_points = torch.sigmoid(ref_unact)
         output_detach = torch.zeros_like(output)
         pred_corners_prev = 0.0
-        ref_points_initial = pre_logits = None
-        for i in range(self.eval_idx + 1):
+        ref_points_initial = pre_logits = pre_bboxes = None
+        logits_l, bboxes_l, corners_l, refs_l = [], [], [], []
+        for i in range(self.num_layers if train else self.eval_idx + 1):
             query_pos = self.query_pos_head(ref_points).clamp(-10.0, 10.0)
             output = self.decoder.layers[i](output, ref_points, value, spatial_shapes,
-                                            query_pos_embed=query_pos)
+                                            attn_mask=attn_mask, query_pos_embed=query_pos)
             if i == 0:
                 pre_delta = self.pre_bbox_head(output)
-                ref_points_initial = torch.sigmoid(pre_delta + inverse_sigmoid(ref_points))
+                pre_bboxes = torch.sigmoid(pre_delta + inverse_sigmoid(ref_points))
                 pre_logits = self.dec_score_head[0](output)
+                ref_points_initial = pre_bboxes.detach()
+            # pred_corners stays attached to the previous layers' corners, as in JAX
             pred_corners = self.dec_bbox_head[i](output + output_detach) + pred_corners_prev
             inter_ref_bbox = distance2bbox(
                 ref_points_initial, integral(pred_corners, self.project, self.reg_max),
                 self.reg_scale)
-            if i == self.eval_idx:
+            if train or i == self.eval_idx:
                 scores = pre_logits if i == 0 else self.dec_score_head[i](output)
-                scores = self.decoder.lqe_layers[i](scores, pred_corners)
+                logits_l.append(self.decoder.lqe_layers[i](scores, pred_corners))
+                bboxes_l.append(inter_ref_bbox)
+                corners_l.append(pred_corners)
+                refs_l.append(ref_points_initial)
             pred_corners_prev = pred_corners
-            ref_points = inter_ref_bbox
-            output_detach = output
-        return {"pred_logits": scores, "pred_boxes": inter_ref_bbox}
+            ref_points = inter_ref_bbox.detach()
+            output_detach = output.detach()
+
+        if not train:
+            return {"pred_logits": logits_l[-1], "pred_boxes": bboxes_l[-1]}
+
+        # ---- split the denoising slots off (reference :975-986)
+        def split(x):
+            return x[:, :num_dn], x[:, num_dn:]
+
+        (dn_logits, logits), (dn_bboxes, bboxes), (dn_corners, corners), (dn_refs, refs) = (
+            tuple(zip(*[split(t) for t in ts])) for ts in (logits_l, bboxes_l, corners_l, refs_l))
+        dn_pre_logits, pre_logits = split(pre_logits)
+        dn_pre_bboxes, pre_bboxes = split(pre_bboxes)
+
+        def sets(lg, bx, cr, rf):
+            return [{"pred_logits": l, "pred_boxes": b, "pred_corners": c, "ref_points": r,
+                     "teacher_corners": cr[-1], "teacher_logits": lg[-1]}
+                    for l, b, c, r in zip(lg, bx, cr, rf)]
+
+        out = {"pred_logits": logits[-1], "pred_boxes": bboxes[-1],
+               "pred_corners": corners[-1], "ref_points": refs[-1],
+               "up": 0.5, "reg_scale": self.reg_scale,
+               "aux_outputs": sets(logits, bboxes, corners, refs)[:-1],
+               "pre_outputs": {"pred_logits": pre_logits, "pred_boxes": pre_bboxes},
+               "enc_aux_outputs": enc_aux}
+        if use_dn:
+            out["dn_outputs"] = sets(dn_logits, dn_bboxes, dn_corners, dn_refs)
+            out["dn_pre_outputs"] = {"pred_logits": dn_pre_logits, "pred_boxes": dn_pre_bboxes}
+            out["dn_meta"] = {"num_dn": num_dn, "num_group": num_group,
+                              "positive": dn["positive"], "valid": dn["valid"],
+                              "gt_index": dn["gt_index"]}
+        return out

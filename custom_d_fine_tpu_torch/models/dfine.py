@@ -22,7 +22,7 @@ from ..configs.registry import ModelConfig
 from .decoder import DFINETransformer
 from .hgnetv2 import HGNetv2
 from .hybrid_encoder import HybridEncoder
-from .layers import MultiHeadAttention, bias_init_with_prob
+from .layers import BatchNorm, MultiHeadAttention, bias_init_with_prob
 
 
 class DFINE(nn.Module):
@@ -46,16 +46,28 @@ class DFINE(nn.Module):
             feat_channels=d.feat_channels, feat_strides=d.feat_strides,
             num_levels=d.num_levels, num_points=d.num_points, nhead=d.nhead,
             num_layers=d.num_layers, dim_feedforward=d.dim_feedforward,
-            activation=d.activation, num_denoising=d.num_denoising, eval_idx=d.eval_idx,
-            eps=d.eps, reg_max=d.reg_max, reg_scale=d.reg_scale,
+            activation=d.activation, num_denoising=d.num_denoising, dn_max_gt=cfg.dn_max_gt,
+            label_noise_ratio=d.label_noise_ratio, box_noise_scale=d.box_noise_scale,
+            eval_idx=d.eval_idx, eps=d.eps, reg_max=d.reg_max, reg_scale=d.reg_scale,
             cross_attn_method=d.cross_attn_method,
             query_select_method=d.query_select_method)
 
-    def forward(self, x: torch.Tensor, stem_external: bool = False,
-                msda_value_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-        """x: NCHW image in [0,1], or the stem output when stem_external."""
+        if b.freeze_norm:  # reference FrozenBatchNorm2d in the backbone
+            for m in self.backbone.modules():
+                if isinstance(m, BatchNorm):
+                    m.frozen = True
+
+    def forward(self, x: torch.Tensor, targets: Optional[Dict[str, torch.Tensor]] = None,
+                dn_draws: Optional[Dict[str, torch.Tensor]] = None,
+                stem_external: bool = False,
+                msda_value_dtype: Optional[torch.dtype] = None) -> Dict[str, object]:
+        """x: NCHW f32 image in [0,1], or the stem output when stem_external.
+        In train mode, targets {labels, boxes, valid} and dn_draws add the
+        denoising queries and the decoder returns every output set the
+        criterion reads (models/decoder.py)."""
         feats = self.encoder(self.backbone(x, stem_external=stem_external))
-        return self.decoder(feats, msda_value_dtype=msda_value_dtype)
+        return self.decoder(feats, msda_value_dtype=msda_value_dtype, targets=targets,
+                            dn_draws=dn_draws)
 
 
 def _msda_offset_bias(num_heads: int, num_points: Sequence[int]) -> np.ndarray:

@@ -2,8 +2,9 @@
 
 Parity target: reference src/d_fine/arch/hgnetv2.py (StemBlock :115-166,
 HG_Block :189-275, HG_Stage :278-329, arch table :344-422, forward :561-568).
-Eval path only: freezing is a training concern and comes with the training
-slice.
+The reference's freeze_norm (frozen backbone BatchNorm statistics) is the
+BatchNorm `frozen` flag, set by models/dfine.py; freeze_at is a parameter
+group of train/optim.py.
 """
 
 from __future__ import annotations
@@ -99,12 +100,15 @@ class StemBlock(nn.Module):
         self.stem2b = ConvBNAct(mid_chs // 2, mid_chs, 2, stride=1, use_lab=use_lab)
         self.stem3 = ConvBNAct(mid_chs * 2, mid_chs, 3, stride=2, use_lab=use_lab)
         self.stem4 = ConvBNAct(mid_chs, out_chs, 1, stride=1, use_lab=use_lab)
-        self.pool = nn.MaxPool2d(kernel_size=2, stride=1, ceil_mode=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.pad(self.stem1(x), (0, 1, 0, 1))
         x2 = self.stem2b(F.pad(self.stem2a(x), (0, 1, 0, 1)))
-        x1 = self.pool(x)
+        # the reference's MaxPool2d(2, stride 1, ceil_mode) on the padded map,
+        # written as the JAX package writes it (two pairwise maxima), so that a
+        # tie (ReLU zeros) splits its gradient as there, not to one element
+        xw = torch.maximum(x[..., :-1], x[..., 1:])
+        x1 = torch.maximum(xw[..., :-1, :], xw[..., 1:, :])
         x = torch.cat([x1, x2], dim=1)
         return self.stem4(self.stem3(x))
 

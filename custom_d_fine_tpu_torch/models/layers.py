@@ -3,8 +3,9 @@
 Counterpart of custom_d_fine_tpu/models/layers.py. Submodule names follow the
 original torch repo's state_dict keys (src/d_fine/arch/hgnetv2.py and
 hybrid_encoder.py), so that utils/weights.py is the inverse of the JAX
-package's checkpoint map. Eval-mode BatchNorm uses eps 1e-5 as in the JAX
-package; LayerNorms are built by their users with LN_EPS = 1e-6 (flax's default).
+package's checkpoint map. BatchNorm uses eps 1e-5 and, in train mode, the
+JAX package's running-variance rule (see BatchNorm); LayerNorms are built by
+their users with LN_EPS = 1e-6 (flax's default).
 
 The JAX package's PointwiseConv, FlatBatchNorm, dot_conv and s2d_conv are TPU
 layout workarounds: nn.Conv2d and nn.BatchNorm2d compute the same function.
@@ -40,8 +41,32 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
     raise ValueError(f"unknown activation {name!r}")
 
 
-def BatchNorm(num_features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(num_features, eps=BN_EPS)
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d whose train-mode running variance follows flax, as the JAX
+    package's BatchNorm does (custom_d_fine_tpu/models/layers.py:111,155-156):
+    the running average takes the *biased* batch variance, where
+    nn.BatchNorm2d takes the unbiased one (N/(N-1) larger, N values per
+    channel). Flax momentum 0.9 is torch momentum 0.1. The batch itself is
+    normalised with the biased variance in both. `frozen` (the backbone's
+    freeze_norm) keeps the running statistics in train mode too."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS)
+        self.frozen = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.frozen:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        m = self.momentum
+        rv = self.running_var.clone()  # autograd keeps this one; the buffer stays free
+        y = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias, True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():  # rv took m * var * n/(n-1); the buffer takes m * var
+            kept = self.running_var * (1.0 - m)
+            self.running_var.copy_((rv - kept) * ((n - 1) / n) + kept)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class LearnableAffineBlock(nn.Module):

@@ -123,3 +123,13 @@ def _bn_name(mod: Tuple[str, ...]) -> str:
     if mod and mod[0] == "backbone" and mod[-1] == "norm":
         name = name[: -len("norm")] + "bn"
     return name
+
+
+def flax_train_state_to_torch(params: Mapping, batch_stats: Mapping, ema: Mapping = None
+                              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The JAX package's TrainState (params, batch_stats and its ema tree
+    {"params", "batch_stats"}) -> (state_dict, ema state_dict) of the port,
+    both through flax_to_torch. The optimizer state is not carried: AdamW
+    starts at zero on both sides. ema None gives None."""
+    sd = flax_to_torch(params, batch_stats)
+    return sd, (None if ema is None else flax_to_torch(ema["params"], ema["batch_stats"]))

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from custom_d_fine_tpu_torch.models.hgnetv2 import StemBlock
-from custom_d_fine_tpu_torch.ops.msda import level_start_index, msda_fwd, msda_fwd_plain
+from custom_d_fine_tpu_torch.ops.msda import (level_start_index, msda, msda_bwd, msda_bwd_plain,
+                                              msda_fwd, msda_fwd_plain)
 from custom_d_fine_tpu_torch.ops.stem import fold_stem_weights, stem_fwd, stem_fwd_plain
 
 pytestmark = pytest.mark.cuda
@@ -73,6 +74,50 @@ def test_msda_kernel_matches_plain(dev, c):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("c", [8, 32, 64])
+def test_msda_bwd_kernel_matches_plain(dev, c):
+    """dloc and dattn are warp sums in f32 (rtol 1e-4, atol 1e-5); dvalue is
+    summed with f32 atomics in an order that changes from run to run: f32 at
+    rtol 1e-4, atol 1e-5, and a bf16 dvalue within one bf16 rounding (1e-2)."""
+    shapes, points = [(12, 16), (6, 8), (3, 4)], [2, 3, 1]
+    g = torch.Generator().manual_seed(100 + c)
+    B, Lq, nh = 2, 37, 3
+    Lv, P = sum(h * w for h, w in shapes), sum(points)
+    value = torch.randn(B, Lv, nh, c, generator=g).to(dev)
+    loc = (torch.rand(B, Lq, nh, P, 2, generator=g) * 1.4 - 0.2).to(dev)
+    loc[0, 0, 0, 0] = torch.tensor([1.0, 0.0])
+    loc[1, 1, 1, 1] = torch.tensor([-5.0, 9.0])   # no corner inside: zero gradient
+    attn = torch.rand(B, Lq, nh, P, generator=g).to(dev)
+    grad = torch.randn(B, Lq, nh * c, generator=g).to(dev)
+    starts = level_start_index(shapes)
+    for v in (value, value.to(torch.bfloat16)):
+        n = msda_bwd.launches
+        got = msda_bwd(v, shapes, starts, loc, attn, grad, points)
+        torch.cuda.synchronize()
+        assert msda_bwd.launches == n + 1
+        want = msda_bwd_plain(v, shapes, starts, loc, attn, grad, points)
+        assert got[0].dtype == v.dtype and got[1].dtype == got[2].dtype == torch.float32
+        dv_tol = dict(rtol=1e-4, atol=1e-5) if v.dtype == torch.float32 else \
+            dict(rtol=1e-2, atol=1e-2)
+        torch.testing.assert_close(got[0].float(), want[0].float(), **dv_tol)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        assert float(got[1][1, 1, 1, 1].abs().sum()) == 0.0 and float(got[2][1, 1, 1, 1]) == 0.0
+
+
+def test_msda_function_launches_both_kernels(dev):
+    shapes, points = [(8, 8), (4, 4)], [2, 2]
+    g = torch.Generator().manual_seed(5)
+    value = torch.randn(2, 80, 2, 32, generator=g).to(dev).requires_grad_()
+    loc = torch.rand(2, 7, 2, 4, 2, generator=g).to(dev).requires_grad_()
+    attn = torch.rand(2, 7, 2, 4, generator=g).to(dev).requires_grad_()
+    n = (msda_fwd.launches, msda_bwd.launches)
+    msda(value, shapes, loc, attn, points).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (msda_fwd.launches, msda_bwd.launches) == (n[0] + 1, n[1] + 1)
+    assert value.grad is not None and loc.grad is not None and attn.grad is not None
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     shapes, points = [(4, 4)], [2]
     value = torch.randn(1, 16, 2, 8, device=dev)
@@ -89,3 +134,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         stem_fwd(torch.zeros(1, 34, 32, 3, dtype=torch.uint8, device=dev), fw)
     with pytest.raises(ValueError):
         stem_fwd(torch.zeros(1, 32, 32, 3, device=dev), fw)
+    grad = torch.randn(1, 3, 16, device=dev)
+    with pytest.raises(ValueError):
+        msda_bwd(value, shapes, (0,), loc, attn, grad.double(), points)
+    with pytest.raises(ValueError):
+        msda_bwd(value, shapes, (0,), loc, attn, grad[:, :2], points)

@@ -86,7 +86,31 @@ def _box_cases():
     d = rng.normal(size=(5, 11, 4)).astype(np.float32)
     logits = rng.normal(size=(2, 30, 7)).astype(np.float32)
     pred = rng.uniform(0, 1, (2, 30, 4)).astype(np.float32)
+    xy = jb.box_cxcywh_to_xyxy(np.abs(b))
+    x1, x2 = np.array(xy[0]), np.array(xy[1, :7])
+    x1[0] = 0.0   # a padded (all-zero) box
+    x2[1] = x2[0]  # a copy: IoU 1
+    dist = rng.uniform(-12, 30, (3, 40)).astype(np.float32)  # below, inside, above the bins
+    pts, gt = np.abs(b[2]), np.asarray(jb.box_cxcywh_to_xyxy(np.abs(b[3])))
     return {
+        "box_iou_pairwise": (lambda: jb.box_iou_pairwise(x1, x2),
+                             lambda: tb.box_iou_pairwise(torch.from_numpy(x1),
+                                                         torch.from_numpy(x2))),
+        "elementwise_box_iou": (lambda: jb.elementwise_box_iou(x1, x2[:1].repeat(11, 0)),
+                                lambda: tb.elementwise_box_iou(
+                                    torch.from_numpy(x1), torch.from_numpy(x2[:1].repeat(11, 0)))),
+        "generalized_box_iou_pairwise": (
+            lambda: jb.generalized_box_iou_pairwise(x1, x2),
+            lambda: tb.generalized_box_iou_pairwise(torch.from_numpy(x1), torch.from_numpy(x2))),
+        "elementwise_generalized_box_iou": (
+            lambda: jb.elementwise_generalized_box_iou(x1, x2[:1].repeat(11, 0)),
+            lambda: tb.elementwise_generalized_box_iou(torch.from_numpy(x1),
+                                                       torch.from_numpy(x2[:1].repeat(11, 0)))),
+        "translate_gt": (lambda: jf.translate_gt(jnp.asarray(dist), 32, 4.0, 0.5),
+                         lambda: tf.translate_gt(torch.from_numpy(dist), 32, 4.0, 0.5)),
+        "bbox2distance": (lambda: jf.bbox2distance(jnp.asarray(pts), jnp.asarray(gt), 32, 4.0, 0.5),
+                          lambda: tf.bbox2distance(torch.from_numpy(pts), torch.from_numpy(gt),
+                                                   32, 4.0, 0.5)),
         "cxcywh_to_xyxy": (lambda: jb.box_cxcywh_to_xyxy(b),
                            lambda: tb.box_cxcywh_to_xyxy(torch.from_numpy(b))),
         "xyxy_to_cxcywh": (lambda: jb.box_xyxy_to_cxcywh(b),
@@ -107,15 +131,26 @@ def _box_cases():
 
 
 @pytest.mark.parametrize("name", ["cxcywh_to_xyxy", "xyxy_to_cxcywh", "inverse_sigmoid",
-                                  "weighting_function", "distance2bbox", "topk_detections"])
+                                  "weighting_function", "distance2bbox", "topk_detections",
+                                  "box_iou_pairwise", "elementwise_box_iou",
+                                  "generalized_box_iou_pairwise",
+                                  "elementwise_generalized_box_iou", "translate_gt",
+                                  "bbox2distance"])
 def test_box_fdr_and_postprocess_match_jax(name):
     """ops/boxes.py, ops/fdr.py and ops/postprocess.py against the JAX
     functions on the same inputs, at rtol=atol=1e-5 (f32 elementwise; the
-    top-K scores of random normal logits have no ties)."""
+    top-K scores of random normal logits have no ties). The IoU cases hold a
+    padded all-zero box and boxes with negative widths; the FDR targets
+    distances below, inside and above the bins."""
     want, got = (f() for f in _box_cases()[name])
     if isinstance(got, dict):
         for k in got:
             np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5,
                                        atol=1e-5, err_msg=k)
+    elif isinstance(got, tuple):
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5,
+                                       err_msg=str(i))
     else:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

@@ -1,6 +1,7 @@
 """custom_d_fine_tpu_torch stands alone: every module imports in a process
 where jax and flax cannot be imported, and no custom_d_fine_tpu module gets
-loaded; chip_smoke.py imports neither. Entry points default to the card."""
+loaded; chip_smoke.py imports neither. Entry points (build_serving,
+build_training) default to the card."""
 
 import ast
 import pathlib
@@ -60,3 +61,14 @@ def test_build_serving_defaults_to_the_card():
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_build_training_defaults_to_the_card():
+    from custom_d_fine_tpu_torch.train.train_step import build_training
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_training()
+    with pytest.raises(ValueError, match="bf16"):  # the CPU copy is the f32 reference
+        build_training(device="cpu")

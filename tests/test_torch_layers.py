@@ -69,6 +69,39 @@ def test_batchnorm_eval():
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("frozen", [False, True])
+def test_batchnorm_train(frozen):
+    """Train mode: the output, its gradient and the running statistics after
+    one update, on a 5x5 map at batch 2 (N = 50 values per channel), where
+    flax's biased running variance and nn.BatchNorm2d's unbiased one differ
+    by 2%. frozen keeps the running statistics and normalises with them."""
+    x = _img((2, 5, 5, 6), seed=3) * 2.0 + 0.5
+    cot = _img((2, 5, 5, 6), seed=4)
+    mod = fl.BatchNorm(frozen=frozen)
+    v = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    v = {k: _perturb(val, np.random.default_rng(0)) for k, val in v.items()}
+
+    def f(params, xin):
+        y, upd = mod.apply({"params": params, "batch_stats": v["batch_stats"]}, xin,
+                           train=True, mutable=["batch_stats"])
+        return (y * cot).sum(), (y, upd["batch_stats"])
+
+    (_, (want, stats)), gx = jax.value_and_grad(f, argnums=1, has_aux=True)(
+        v["params"], jnp.asarray(x))
+    bn = tl.BatchNorm(6)
+    bn.load_state_dict(flax_to_torch(v["params"], v["batch_stats"], "encoder/input_proj_0_norm"))
+    bn.frozen = frozen
+    bn.train()
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    got = bn(xt)
+    (got * torch.from_numpy(cot).permute(0, 3, 1, 2)).sum().backward()
+    np.testing.assert_allclose(got.detach().permute(0, 2, 3, 1).numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(gx), **TOL)
+    want_sd = flax_to_torch(v["params"], stats, "encoder/input_proj_0_norm")
+    for k in ("running_mean", "running_var"):
+        np.testing.assert_allclose(getattr(bn, k).numpy(), want_sd[k].numpy(), **TOL, err_msg=k)
+
+
 def test_learnable_affine_block():
     got, want, _ = _pair(fl.LearnableAffineBlock(), tl.LearnableAffineBlock(),
                          [_img((2, 3, 4, 5))], "backbone/stem/stem1/lab")

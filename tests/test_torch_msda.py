@@ -76,6 +76,29 @@ def test_plain_matches_level_kernel_interpret():
     np.testing.assert_allclose(_port(value, shapes, loc, attn, points), want, **TOL)
 
 
+def test_plain_matches_psum_kernel_interpret(monkeypatch):
+    """The third TPU forward kernel, msda_sep.py:_sep_kernel_psum (the P-sum
+    inside the kernel, chosen by MSDA_FWD_PSUM=1), computes the same
+    function: held against the port as test_deform_attn.py:349 holds it
+    against _sep_kernel. Exact mode at TOL; fast (bf16) mode against a bf16
+    value map at the scaled atol 0.02."""
+    from custom_d_fine_tpu.ops.pallas import msda_sep
+
+    shapes, points = [(64, 64), (3, 4)], [2, 3]  # 4096: the separable branch
+    value, loc, attn = _inputs(shapes, points, B=2, Lq=5, seed=17, lo=-0.1, hi=1.1)
+    monkeypatch.setattr(msda_sep, "_FWD_PSUM", True)
+    with pltpu.force_tpu_interpret_mode():
+        exact, fast = (np.asarray(msda_sep._msda_sep_fwd_impl(
+            jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn), points,
+            fast=f), np.float32) for f in (False, True))
+    np.testing.assert_allclose(_port(value, shapes, loc, attn, points), exact, **TOL)
+    got16 = msda_fwd(torch.from_numpy(value).to(torch.bfloat16), shapes,
+                     level_start_index(shapes), torch.from_numpy(loc),
+                     torch.from_numpy(attn), points).numpy()
+    scale = max(np.abs(exact).max(), 1e-6)
+    np.testing.assert_allclose(got16 / scale, fast / scale, atol=0.02)
+
+
 def test_bf16_value_within_scaled_tolerance():
     """bf16 value (the serving precision on the card) against the f32 XLA
     reference and against the TPU serving kernel (fast mode, interpret)."""
