@@ -14,12 +14,15 @@ without printing its final line:
      timed beside its plain version and a PyTorch library formulation where
      one exists (device time from the profiler's device events; CUDA events
      over back-to-back calls as a second reading), with its bound on the card.
-     The stem and the MSDA forward at the serving shapes, the MSDA backward at
-     the training shapes (B = 2 and 16, 500 queries, f32 and bf16 values).
+     The stem in both modes (exact f32; fast: bf16 operands on the tensor
+     cores, as served) and the MSDA forward at the serving shapes, the MSDA
+     forward and backward at the training shapes (B = 2 and 16, 500 queries,
+     f32 and bf16 values, plus a level wider than one shared-memory slab).
   4. serving: build_serving("m", 80, (640, 640)) with the port's own random
      init; serves uint8 batches at bs1 and bs4 with every launch counter set
      to 0 just before and read just after; checks the detections; compares
-     bs1 detections with the same forward on a CPU copy of the model; times
+     bs1 detections with the same forward on a CPU copy of the model (all
+     f32, and in the served modes: fast stem, bf16 MSDA value); times
      serving ms/img at bs1 and bs16 with TF32 off, as PyTorch defaults it
      (convolutions only) and fully on; profiles bs1 requests for the device's
      busy time and idle share.
@@ -49,9 +52,13 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor cores,
+# dense bf16 on the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+STEM_FAST_TOL = 1e-2  # fast stem vs its plain version, scaled by the output's largest entry
+SERVED_SAME_TOL = 2e-3  # as served on the card vs the CPU in the same modes (phase 4)
 
 IMG = (640, 640)
 SHAPES = [(80, 80), (40, 40), (20, 20)]  # MSDA levels of D-FINE-m at 640^2
@@ -154,8 +161,22 @@ def host_ms(fn, iters: int = 10, warmup: int = 3) -> dict:
     return out
 
 
-def bound(bytes_: float, flops: float):
-    t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / PEAK_F32
+def events_by_name(torch, fn, n: int = 10):
+    """The device events of one call of fn, by kernel name: ms and count per
+    call, averaged over n calls (an empty list when the profiler records
+    none)."""
+    fn()
+    torch.cuda.synchronize()
+    by_name = {}
+    for name, _, d in device_spans(fn, n):
+        t, c = by_name.get(name, (0, 0))
+        by_name[name] = (t + d, c + 1)
+    return [{"kernel": k[:120], "ms": t / 1e6 / n, "calls": c / n}
+            for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])]
+
+
+def bound(bytes_: float, flops: float, peak_ops: float = PEAK_F32):
+    t_bytes, t_ops = bytes_ / PEAK_BYTES, flops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -197,7 +218,26 @@ def stem_work(B, H, W, M, M2, O):
     return B * H * W * 3 + B * H4 * W4 * O * 4 + weights * 4, 2.0 * B * macs
 
 
+def sass_count(lib_name: str, opcode: str) -> int:
+    """Instructions of `opcode` in a built library's SASS (cuobjdump -sass),
+    or -1 when the toolkit has no cuobjdump."""
+    import shutil
+
+    from custom_d_fine_tpu_torch.ops import _ext
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return -1
+    sass = subprocess.run([tool, "-sass", str(_ext.build_dir() / f"lib{lib_name}.so")],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    return sum(1 for line in sass.splitlines() if opcode in line)
+
+
 def check_stem(torch, report):
+    """Both modes against the plain version on the same weights and bytes, at
+    B = 1 and 2, 640^2: exact at atol 2e-5, fast at STEM_FAST_TOL of the
+    output's largest entry (a bf16 intermediate may round the other way when
+    its f32 sum is taken in another order). Timed at bs1, as serving calls it."""
     from custom_d_fine_tpu_torch.models.hgnetv2 import StemBlock
     from custom_d_fine_tpu_torch.ops.stem import fold_stem_weights, stem_fwd, stem_fwd_plain
 
@@ -214,33 +254,63 @@ def check_stem(torch, report):
                 m.scale.fill_(1.1)
                 m.bias.fill_(-0.05)
     fw = fold_stem_weights(stem.cuda())
-    err = 0.0
+    err = {False: 0.0, True: 0.0}
+    fast_scaled = 0.0
     for B in (1, 2):
         x = torch.randint(0, 256, (B, *IMG, 3), dtype=torch.uint8, generator=g).cuda()
-        got = stem_fwd(x, fw)
-        torch.cuda.synchronize()
-        want = stem_fwd_plain(x, fw)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        log(f"[stem] B={B} {tuple(got.shape)} max_abs_err={e:.3e} (atol 2e-5)")
-        if not (torch.isfinite(got).all() and e <= 2e-5):
-            raise AssertionError(f"stem kernel disagrees with its plain version: {e}")
-        err = max(err, e)
+        for fast in (False, True):
+            got = stem_fwd(x, fw, fast)
+            torch.cuda.synchronize()
+            want = stem_fwd_plain(x, fw, fast)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            err[fast] = max(err[fast], e)
+            if fast:
+                scaled = e / want.abs().max().item()
+                fast_scaled = max(fast_scaled, scaled)
+                rounding = (got - exact).abs().max().item() / exact.abs().max().item()
+                log(f"[stem] fast B={B} {tuple(got.shape)} max_abs_err={e:.3e}, scaled "
+                    f"{scaled:.3e} ({STEM_FAST_TOL:g}); fast vs exact kernel, scaled: "
+                    f"{rounding:.3e}")
+                ok = scaled <= STEM_FAST_TOL
+            else:
+                exact = got
+                log(f"[stem] exact B={B} {tuple(got.shape)} max_abs_err={e:.3e} (atol 2e-5)")
+                ok = e <= 2e-5
+            if not (torch.isfinite(got).all() and ok):
+                raise AssertionError(f"stem kernel (fast={fast}) disagrees with its plain "
+                                     f"version: {e}")
+    hmma = sass_count("stem_tc", "HMMA")
+    log(f"[stem] cuobjdump -sass libstem_tc.so: {hmma} HMMA instructions"
+        + (" (cuobjdump not found: not checked)" if hmma < 0 else ""))
+    if hmma == 0:
+        raise AssertionError("the fast stem kernel has no tensor-core (HMMA) instruction")
     x = torch.randint(0, 256, (1, *IMG, 3), dtype=torch.uint8, generator=g).cuda()
-    t_k = time_call(lambda: stem_fwd(x, fw))
-    t_p = time_call(lambda: stem_fwd_plain(x, fw))
-    ms, plain = t_k["ms"], t_p["ms"]
-    b_ms, b_by = bound(*stem_work(1, *IMG, 24, 12, 32))
+    bytes_, flops = stem_work(1, *IMG, 24, 12, 32)
+    modes = {}
+    for name, fast, peak in (("fast", True, PEAK_BF16), ("exact", False, PEAK_F32)):
+        t_k = time_call(lambda: stem_fwd(x, fw, fast))
+        t_p = time_call(lambda: stem_fwd_plain(x, fw, fast))
+        b_ms, b_by = bound(bytes_, flops, peak)
+        modes[name] = dict(ms=t_k["ms"], plain_ms=t_p["ms"], bound_ms=b_ms, bound_by=b_by,
+                           cuda_events_ms=t_k["cuda_events_ms"],
+                           plain_cuda_events_ms=t_p["cuda_events_ms"])
+        log(f"[stem] {name} bs1 device time: kernel {t_k['ms']:.4f} ms | plain "
+            f"{t_p['ms']:.4f} ms (CUDA events over back-to-back calls: "
+            f"{t_k['cuda_events_ms']:.4f} | {t_p['cuda_events_ms']:.4f}) | bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}) | library: none (no single PyTorch call is the stem)")
+    f, ex = modes["fast"], modes["exact"]
     row = {"name": "stem_fwd", "route": "cuda",
-           "source": "custom_d_fine_tpu_torch/csrc/stem.cu",
+           "source": "custom_d_fine_tpu_torch/csrc/stem_tc.cu",
            "replaces": "custom_d_fine_tpu/ops/pallas/stem.py:104",
            "tpu_kernels": ["custom_d_fine_tpu/ops/pallas/stem.py:104 _stem_kernel"],
-           "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": None, "shape": "B=1 640x640x3 uint8 -> f32",
-           "cuda_events_ms": t_k["cuda_events_ms"], "plain_cuda_events_ms": t_p["cuda_events_ms"]}
-    log(f"[stem] device time: kernel {ms:.4f} ms | plain {plain:.4f} ms (CUDA events over "
-        f"back-to-back calls: {t_k['cuda_events_ms']:.4f} | {t_p['cuda_events_ms']:.4f}) | bound {b_ms * 1e3:.2f} us "
-        f"({b_by}) | library: none (no single PyTorch call is the stem)")
+           "max_abs_err": err[True], "max_scaled_err": fast_scaled, "ms": f["ms"],
+           "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+           "library_ms": None, "shape": "B=1 640x640x3 uint8 -> f32, fast mode (served)",
+           "cuda_events_ms": f["cuda_events_ms"],
+           "plain_cuda_events_ms": f["plain_cuda_events_ms"], "hmma_instructions": hmma,
+           "exact": {"source": "custom_d_fine_tpu_torch/csrc/stem.cu",
+                     "max_abs_err": err[False], **ex}}
     report["stem_calls"] = row
     return row
 
@@ -385,8 +455,27 @@ def check_msda(torch, report):
             f"{t_p['ms']:.4f} ms | grid_sample {lib} ms (CUDA events over back-to-back calls: "
             f"{t_k['cuda_events_ms']:.4f} | {t_p['cuda_events_ms']:.4f} | {lib_ev}) | bound "
             f"{b_ms * 1e3:.2f} us ({b_by}; {bytes_ / 1e6:.2f} MB, {n_rows} value rows)")
+    # the training step's shapes: bs16, 500 queries, bf16 value (4 calls a step)
+    v32, loc, attn = msda_inputs(torch, 16, g, torch.float32, Lq=LQ_TRAIN)
+    v = v32.to(torch.bfloat16)
+    t_k = time_call(lambda: msda_fwd(v, SHAPES, starts, loc, attn, POINTS))
+    t_p = time_call(lambda: msda_fwd_plain(v, SHAPES, starts, loc, attn, POINTS), iters=5)
+    try:
+        t_l = time_call(lambda: msda_grid_sample(torch, v, loc, attn))
+    except RuntimeError as e:
+        log(f"[msda] grid_sample on a bf16 value failed ({e}); library_ms null")
+        t_l = {"ms": None, "cuda_events_ms": None}
+    bytes_, flops, n_rows = msda_work(torch, v, loc, attn)
+    b_ms, b_by = bound(bytes_, flops)
+    rows["train_bf16"] = dict(ms=t_k["ms"], plain_ms=t_p["ms"], library_ms=t_l["ms"],
+                              bound_ms=b_ms, bound_by=b_by, bytes=bytes_, flops=flops,
+                              value_rows=n_rows, cuda_events_ms=t_k["cuda_events_ms"])
+    lib = "n/a" if t_l["ms"] is None else "%.4f" % t_l["ms"]
+    log(f"[msda] bs16 Lq={LQ_TRAIN} bf16 value (training), device time: kernel "
+        f"{t_k['ms']:.4f} ms | plain {t_p['ms']:.4f} ms | grid_sample {lib} ms | bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}; {bytes_ / 1e6:.2f} MB, {n_rows} value rows)")
     report["msda_calls"] = rows
-    r = rows["bf16"]
+    r, rt = rows["bf16"], rows["train_bf16"]
     return {"name": "msda_fwd", "route": "cuda",
             "source": "custom_d_fine_tpu_torch/csrc/msda.cu",
             "replaces": "custom_d_fine_tpu/ops/pallas/msda_sep.py:69",
@@ -399,7 +488,8 @@ def check_msda(torch, report):
             "shape": "B=1 Lq=300 8x32 levels 80/40/20 points 3/6/3, bf16 value",
             "checked_shapes": "B=1 and 4 at Lq=300, B=16 at Lq=500; f32 and bf16 value",
             "cuda_events_ms": r["cuda_events_ms"], "plain_cuda_events_ms": r["plain_cuda_events_ms"],
-            "library_cuda_events_ms": r["library_cuda_events_ms"]}
+            "library_cuda_events_ms": r["library_cuda_events_ms"],
+            "train": {"shape": "B=16 Lq=500, bf16 value", **rt}}
 
 
 def check_msda_bwd(torch, report):
@@ -434,6 +524,30 @@ def check_msda_bwd(torch, report):
                 worst, worst_scaled = max(worst, e), max(worst_scaled, scaled)
                 msg.append(f"{name} {e:.3e} (scaled {scaled:.2e}, tol {tol:g})")
             log(f"[msda_bwd] B={B} Lq={LQ_TRAIN} {str(dtype)[6:]} value: " + " | ".join(msg))
+    # a level whose single row does not fit one CTA's shared-memory slab (800
+    # positions of 32 channels): rectangles of part of a row
+    shapes, points = [(3, 1000), (40, 40)], [4, 2]
+    for dtype in (torch.float32, torch.bfloat16):
+        Lv, P = sum(h * w for h, w in shapes), sum(points)
+        v = torch.randn(2, Lv, 2, CH, generator=g).to(dtype).cuda()
+        loc = (torch.rand(2, 100, 2, P, 2, generator=g) * 1.2 - 0.1).cuda()
+        attn = torch.rand(2, 100, 2, P, generator=g).cuda()
+        grad = torch.randn(2, 100, 2 * CH, generator=g).cuda()
+        st = level_start_index(shapes)
+        got = msda_bwd(v, shapes, st, loc, attn, grad, points)
+        torch.cuda.synchronize()
+        want = msda_bwd_plain(v, shapes, st, loc, attn, grad, points)
+        for name, a, b in zip(("dvalue", "dloc", "dattn"), got, want):
+            a, b = a.float(), b.float()
+            e = (a - b).abs().max().item()
+            scaled = e / max(b.abs().max().item(), 1e-6)
+            tol = 8e-3 if (name == "dvalue" and dtype == torch.bfloat16) else 1e-5
+            if not (torch.isfinite(a).all() and scaled <= tol):
+                raise AssertionError(f"msda_bwd {name} on a 3x1000 level ({dtype}) disagrees "
+                                     f"with its plain version: scaled {scaled}")
+            worst, worst_scaled = max(worst, e), max(worst_scaled, scaled)
+        log(f"[msda_bwd] levels 3x1000 + 40x40 (rows wider than a slab), {str(dtype)[6:]} "
+            f"value: within tolerance")
     v, loc, attn = msda_inputs(torch, 16, g, torch.bfloat16, Lq=LQ_TRAIN)
     grad = torch.randn(16, LQ_TRAIN, HEADS * CH, generator=g).cuda()
     t_k = time_call(lambda: msda_bwd(v, SHAPES, starts, loc, attn, grad, POINTS))
@@ -445,6 +559,12 @@ def check_msda_bwd(torch, report):
     except RuntimeError as e:
         log(f"[msda_bwd] grid_sample backward on a bf16 value failed ({e}); library_ms null")
         t_l = {"ms": None, "cuda_events_ms": None}
+    events = events_by_name(torch, lambda: msda_bwd(v, SHAPES, starts, loc, attn, grad, POINTS))
+    for e in events:
+        log(f"[msda_bwd]   device event {e['ms']:.4f} ms x{e['calls']:g}  {e['kernel'][:90]}")
+    foreign = [e["kernel"] for e in events if "msda_bwd_" not in e["kernel"]]
+    if foreign:  # the wrapper allocates with torch.empty: no fill, no cast
+        raise AssertionError(f"msda_bwd ran device work besides its kernels: {foreign}")
     bytes_, flops, n_rows = msda_bwd_work(torch, v, loc, attn)
     b_ms, b_by = bound(bytes_, flops)
     lib = "n/a" if t_l["ms"] is None else "%.4f" % t_l["ms"]
@@ -460,7 +580,7 @@ def check_msda_bwd(torch, report):
            "max_abs_err": worst, "max_scaled_err": worst_scaled, "ms": t_k["ms"],
            "plain_ms": t_p["ms"], "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l["ms"],
            "shape": "B=16 Lq=500 8x32 levels 80/40/20 points 3/6/3, bf16 value",
-           "bytes": bytes_, "flops": flops, "value_rows": n_rows,
+           "bytes": bytes_, "flops": flops, "value_rows": n_rows, "device_events": events,
            "cuda_events_ms": t_k["cuda_events_ms"],
            "plain_cuda_events_ms": t_p["cuda_events_ms"],
            "library_cuda_events_ms": t_l["cuda_events_ms"]}
@@ -523,7 +643,7 @@ def phase_serving(torch, report):
                for bs in (1, 4, 16)}
 
     # ---- the main path: counts set to 0 just before, read just after
-    stem_fwd.launches = 0
+    stem_fwd.launches = stem_fwd.fast_launches = 0
     msda_fwd.launches = 0
     n_fwd = 0
     for bs in (1, 4):
@@ -533,13 +653,14 @@ def phase_serving(torch, report):
             detections_ok(det, bs)
     torch.cuda.synchronize()
     launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches}
-    log(f"[serve] {n_fwd} forwards (bs1 x2, bs4 x2): launches {launches}; "
-        f"top score {det['scores'].max().item():.4f}")
+    n_fast = stem_fwd.fast_launches
+    log(f"[serve] {n_fwd} forwards (bs1 x2, bs4 x2): launches {launches}, of which "
+        f"{n_fast} of the stem in its fast mode; top score {det['scores'].max().item():.4f}")
     n_layers = get_model_config("m").decoder.num_layers
-    if launches != {"stem_fwd": n_fwd, "msda_fwd": n_layers * n_fwd}:
-        raise AssertionError(f"expected {n_fwd} stem and {n_layers * n_fwd} MSDA launches, "
-                             f"got {launches}")
-    report["launches_serving"] = launches
+    if launches != {"stem_fwd": n_fwd, "msda_fwd": n_layers * n_fwd} or n_fast != n_fwd:
+        raise AssertionError(f"expected {n_fwd} fast stem and {n_layers * n_fwd} MSDA "
+                             f"launches, got {launches}, {n_fast} fast")
+    report["launches_serving"] = dict(launches, stem_fwd_fast=n_fast)
 
     # ---- the same forward on a CPU copy. Conv kernels x sqrt(6) (kaiming
     # scale): with torch's default scale a random model's features fade
@@ -557,18 +678,35 @@ def phase_serving(torch, report):
     t0 = time.perf_counter()
     want = cpu_fn(x1.cpu())
     log(f"[serve] CPU forward bs1 in {time.perf_counter() - t0:.1f} s")
-    exact_fn = make_serving_forward(gpu_model, IMG, msda_value_dtype=None)
+    exact_fn = make_serving_forward(gpu_model, IMG, msda_value_dtype=None, stem_fast=False)
     got = exact_fn(x1)
     err, n_keep = compare_detections(got, want, IMG)
     log(f"[serve] card (f32, TF32 off) vs CPU, bs1: scores max_abs_err={err:.3e} (1e-4); "
         f"labels/boxes equal on {n_keep} tie-robust detections")
     fast = make_serving_forward(gpu_model, IMG)(x1)
     err16 = (fast["scores"].cpu() - want["scores"]).abs().max().item()
-    log(f"[serve] card (bf16 MSDA value, as served) vs CPU: scores max_abs_err={err16:.3e} (1e-2)")
+    log(f"[serve] card (fast stem and bf16 MSDA value, as served) vs CPU: scores "
+        f"max_abs_err={err16:.3e} (1e-2)")
     if err16 > 1e-2:
         raise AssertionError(f"bf16 serving scores differ from the CPU forward: {err16}")
+    plain_fast = served_with_plain_stem(torch, gpu_model, x1, fast=True)
+    err_pf = (plain_fast["scores"].cpu() - want["scores"]).abs().max().item()
+    log(f"[serve] card, plain fast stem + bf16 MSDA value vs CPU: scores "
+        f"max_abs_err={err_pf:.3e}")
+    # the as-served path against a CPU copy in the same modes (the plain fast
+    # stem, a bf16 value map): the bf16 roundings are the same up to values
+    # whose f32 input differs in its last bits and so rounds the other way
+    same_fn = make_serving_forward(copy.deepcopy(ref).cpu(), IMG,
+                                   msda_value_dtype=torch.bfloat16, stem_fast=True)
+    err_same, n_same = compare_detections(fast, same_fn(x1.cpu()), IMG, tol=SERVED_SAME_TOL)
+    log(f"[serve] card (as served) vs CPU in the same modes: scores max_abs_err="
+        f"{err_same:.3e} ({SERVED_SAME_TOL:g}); labels/boxes equal on {n_same} tie-robust "
+        f"detections")
     report["cpu_compare"] = {"scores_max_abs_err_f32": err, "robust_detections": n_keep,
-                             "scores_max_abs_err_bf16": err16}
+                             "scores_max_abs_err_bf16": err16,
+                             "scores_max_abs_err_plain_fast_stem": err_pf,
+                             "scores_max_abs_err_same_modes": err_same,
+                             "robust_detections_same_modes": n_same}
 
     # ---- serving time, ms/img (host clock around a synchronised request).
     # "default" is what a caller gets from PyTorch: cuDNN convolutions in
@@ -594,6 +732,19 @@ def phase_serving(torch, report):
                                             timing["bs1_default"]["median"], "serving bs1")
     torch.backends.cudnn.allow_tf32 = False
     return launches
+
+
+def served_with_plain_stem(torch, model, x, fast):
+    """The served graph (bf16 MSDA value) with the stem's plain version in
+    place of its kernel: what the stem mode alone does to the detections."""
+    from custom_d_fine_tpu_torch.ops.postprocess import topk_detections
+    from custom_d_fine_tpu_torch.ops.stem import fold_stem_weights, stem_fwd_plain
+
+    fw = fold_stem_weights(model.backbone.stem)
+    with torch.inference_mode():
+        s = stem_fwd_plain(x, fw, fast=fast).permute(0, 3, 1, 2)
+        out = model(s, stem_external=True, msda_value_dtype=torch.bfloat16)
+        return topk_detections(out["pred_logits"], out["pred_boxes"], 300, IMG)
 
 
 def profile(torch, step, wall_ms, what, n=10):

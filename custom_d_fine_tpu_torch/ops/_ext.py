@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("stem", "msda", "msda_bwd")
+SOURCES = ("stem", "stem_tc", "msda", "msda_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

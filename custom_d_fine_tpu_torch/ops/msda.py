@@ -10,11 +10,14 @@ it is latency-bound; the design keeps many independent coalesced row loads in
 flight (see the note in csrc/msda.cu).
 
 The backward replaces ops/pallas/msda_sep.py:_sep_bwd_kernel (levels of
->= 1024 positions) and ops/pallas/msda.py:_level_bwd_kernel (small levels):
-one kernel over all levels, with the same grid as the forward, that
-recomputes the corners, scatters dvalue with f32 atomics and forms dloc and
-dattn from per-corner <g, v> sums in registers. Bound on the H100: bytes (a
-bs16 training call moves ~137 MB); see csrc/msda_bwd.cu.
+>= 1024 positions) and ops/pallas/msda.py:_level_bwd_kernel (small levels).
+Bound on the H100: bytes (a bs16 training call must move ~137 MB, most of
+it the bf16 dvalue written once and the value rows read once). Two kernels
+of csrc/msda_bwd.cu, counted as one launch: dloc and dattn from per-corner
+<g, v> sums, one warp per (b, q, head) with 16-byte channel loads; dvalue
+gathered per CTA into an f32 slab in shared memory (a rectangle of one
+(b, head, level) map) and stored once in value's dtype, so the call needs
+no f32 buffer, no zero-fill, no cast and no global atomic.
 
 `msda_fwd` and `msda_bwd` take the plain version only for tensors on the
 CPU. For a CUDA tensor they launch the kernel or raise.
@@ -179,8 +182,10 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
              grad_out: torch.Tensor, num_points_list: Sequence[int]
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same signature and result as msda_bwd_plain; launches csrc/msda_bwd.cu
-    for CUDA tensors and counts the launch in `msda_bwd.launches`. dvalue is
-    summed with f32 atomics, so its last bits vary from run to run."""
+    for CUDA tensors and counts the launch in `msda_bwd.launches`. The kernel
+    writes every element of dvalue, in value's dtype, into memory from
+    torch.empty; it sums with shared-memory f32 atomics, so dvalue's last
+    bits vary from run to run."""
     if value.device.type == "cpu":
         return msda_bwd_plain(value, spatial_shapes, level_start, loc, attn, grad_out,
                               num_points_list)
@@ -196,7 +201,7 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     _check(grad_out, "grad_out", (torch.float32,), (B, Lq, nh * c), "msda_bwd")
     if not (value.device == loc.device == attn.device == grad_out.device):
         raise ValueError("msda_bwd: value, loc, attn and grad_out lie on different devices")
-    dvalue = torch.zeros((B, Lv, nh, c), dtype=torch.float32, device=value.device)
+    dvalue = torch.empty((B, Lv, nh, c), dtype=value.dtype, device=value.device)
     dloc = torch.empty((B, Lq, nh, P, 2), dtype=torch.float32, device=value.device)
     dattn = torch.empty((B, Lq, nh, P), dtype=torch.float32, device=value.device)
     fn = load("msda_bwd").msda_bwd
@@ -211,7 +216,7 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     if err != 0:
         raise RuntimeError(f"msda_bwd: kernel launch failed with CUDA error {err}")
     msda_bwd.launches += 1
-    return dvalue.to(value.dtype), dloc, dattn
+    return dvalue, dloc, dattn
 
 
 msda_bwd.launches = 0

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes that reach the edge cases (H % 32 != 0, c < 32 and c > 32,
-ragged tiles), plus the wrappers' input checks. Marked `cuda`: each test
+ragged tiles, levels larger than one shared-memory slab of msda_bwd), plus
+the wrappers' input checks. Marked `cuda`: each test
 skips where no GPU is present. This file imports no JAX, so it also runs on
 a machine that has only the port:
 
@@ -74,11 +75,12 @@ def test_msda_kernel_matches_plain(dev, c):
                                    rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("c", [8, 32, 64])
+@pytest.mark.parametrize("c", [6, 8, 32, 64])  # 6: the scalar paths (no 16-byte rows)
 def test_msda_bwd_kernel_matches_plain(dev, c):
     """dloc and dattn are warp sums in f32 (rtol 1e-4, atol 1e-5); dvalue is
-    summed with f32 atomics in an order that changes from run to run: f32 at
-    rtol 1e-4, atol 1e-5, and a bf16 dvalue within one bf16 rounding (1e-2)."""
+    summed with shared-memory f32 atomics in an order that changes from run
+    to run: f32 at rtol 1e-4, atol 1e-5, and a bf16 dvalue within one bf16
+    rounding (1e-2)."""
     shapes, points = [(12, 16), (6, 8), (3, 4)], [2, 3, 1]
     g = torch.Generator().manual_seed(100 + c)
     B, Lq, nh = 2, 37, 3
@@ -103,6 +105,109 @@ def test_msda_bwd_kernel_matches_plain(dev, c):
         for a, b in zip(got[1:], want[1:]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
         assert float(got[1][1, 1, 1, 1].abs().sum()) == 0.0 and float(got[2][1, 1, 1, 1]) == 0.0
+
+
+@pytest.mark.parametrize("M,O,use_lab,hw", [
+    (24, 32, True, (64, 96)),
+    (16, 16, False, (36, 44)),   # H % 32 != 0; ragged 8x8 output tiles
+    (32, 48, True, (32, 32)),
+    (48, 96, True, (40, 72)),    # the B6 stem (M2 = 24)
+])
+def test_stem_fast_kernel_matches_plain(dev, M, O, use_lab, hw):
+    """The tensor-core kernel against the plain fast version (bf16 operands,
+    f32 sums) at 1e-2 of the output's largest entry: a bf16 intermediate may
+    round the other way when its f32 sum is taken in another order."""
+    fw = fold_stem_weights(_stem(M, O, use_lab).to(dev))
+    x = torch.randint(0, 256, (2, *hw, 3), dtype=torch.uint8, device=dev)
+    n = (stem_fwd.launches, stem_fwd.fast_launches)
+    got = stem_fwd(x, fw, fast=True)
+    torch.cuda.synchronize()
+    assert (stem_fwd.launches, stem_fwd.fast_launches) == (n[0] + 1, n[1] + 1)
+    want = stem_fwd_plain(x, fw, fast=True)
+    assert got.shape == want.shape == (2, hw[0] // 4, hw[1] // 4, O)
+    assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+
+def _edge_points(g, shapes, points, B, Lq, nh, c):
+    """MSDA inputs whose points lie across the band and rectangle edges of
+    msda_bwd's shared-memory slabs (SLAB_FLOATS = 25,600 f32 per CTA, at
+    most 256 channels) and outside the map."""
+    npos = 25600 // min(c, 256)
+    P = sum(points)
+    loc = torch.rand(B, Lq, nh, P, 2, generator=g) * 1.4 - 0.2
+    p0 = 0
+    for (H, W), p in zip(shapes, points):
+        tw = min(W, npos)
+        th = min(H, npos // tw)
+        # corners (x0, x0 + 1) on both sides of a rectangle's right edge and
+        # (y0, y0 + 1) on both sides of a band's lower edge
+        ex = min(tw, W - 1) / W if tw < W else 0.5
+        ey = min(th, H - 1) / H if th < H else 0.5
+        loc[:, : Lq // 2, :, p0, 0] = ex
+        loc[:, : Lq // 2, :, p0, 1] = ey
+        p0 += p
+    loc[0, 0, 0, 0] = torch.tensor([-3.0, 0.5])  # far outside: zero gradient
+    return loc
+
+
+@pytest.mark.parametrize("c,shapes", [
+    (16, [(64, 50), (2, 1700)]),   # 1600-position slabs: bands of 32 rows; rows wider
+    (64, [(30, 30), (2, 450)]),    # 400-position slabs: bands of 13 rows; rows wider
+])
+def test_msda_bwd_across_slab_edges(dev, c, shapes):
+    """dvalue summed per shared-memory slab: levels larger than one slab
+    (bands of rows, and rows wider than a slab), points on the edges. f32:
+    rtol 1e-4, atol 1e-5; a bf16 dvalue within one bf16 rounding."""
+    points = [3, 2]
+    g = torch.Generator().manual_seed(200 + c)
+    B, Lq, nh = 2, 40, 2
+    Lv = sum(h * w for h, w in shapes)
+    value = torch.randn(B, Lv, nh, c, generator=g).to(dev)
+    loc = _edge_points(g, shapes, points, B, Lq, nh, c).to(dev)
+    attn = torch.rand(B, Lq, nh, sum(points), generator=g).to(dev)
+    grad = torch.randn(B, Lq, nh * c, generator=g).to(dev)
+    starts = level_start_index(shapes)
+    for v in (value, value.to(torch.bfloat16)):
+        got = msda_bwd(v, shapes, starts, loc, attn, grad, points)
+        torch.cuda.synchronize()
+        want = msda_bwd_plain(v, shapes, starts, loc, attn, grad, points)
+        assert got[0].dtype == v.dtype
+        dv_tol = dict(rtol=1e-4, atol=1e-5) if v.dtype == torch.float32 else \
+            dict(rtol=1e-2, atol=1e-2)
+        torch.testing.assert_close(got[0].float(), want[0].float(), **dv_tol)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        assert float(got[1][0, 0, 0, 0].abs().sum()) == 0.0
+
+
+def test_msda_bwd_dvalue_is_zero_where_no_point_samples(dev):
+    """The wrapper allocates dvalue with torch.empty; the kernel writes every
+    element. Memory the allocator hands back is first filled with NaN, and
+    all points sample the top-left corner of each map: dvalue must be exactly
+    0 everywhere else."""
+    shapes, points = [(40, 40), (20, 20)], [2, 2]
+    B, Lq, nh, c = 2, 30, 2, 32
+    Lv = sum(h * w for h, w in shapes)
+    junk = torch.full((4 * B * Lv * nh * c,), float("nan"), device=dev)
+    del junk  # its block goes back to the caching allocator, NaN and all
+    g = torch.Generator().manual_seed(7)
+    value = torch.randn(B, Lv, nh, c, generator=g).to(dev)
+    loc = (torch.rand(B, Lq, nh, 4, 2, generator=g) * 0.2).to(dev)  # x, y < 0.2
+    attn = torch.rand(B, Lq, nh, 4, generator=g).to(dev)
+    grad = torch.randn(B, Lq, nh * c, generator=g).to(dev)
+    starts = level_start_index(shapes)
+    for v in (value, value.to(torch.bfloat16)):
+        dv = msda_bwd(v, shapes, starts, loc, attn, grad, points)[0].float()
+        torch.cuda.synchronize()
+        assert torch.isfinite(dv).all()
+        for (H, W), s in zip(shapes, starts):
+            m = dv[:, s:s + H * W].reshape(B, H, W, nh, c)
+            yy = int(0.2 * H) + 1  # corners reach row floor(0.2 H - 0.5) + 1 at most
+            xx = int(0.2 * W) + 1
+            assert float(m[:, yy:].abs().sum()) == 0.0 and float(m[:, :, xx:].abs().sum()) == 0.0
+            assert float(m[:, :yy, :xx].abs().sum()) > 0.0
+        want = msda_bwd_plain(v, shapes, starts, loc, attn, grad, points)[0].float()
+        torch.testing.assert_close(dv, want, rtol=1e-2, atol=1e-2)
 
 
 def test_msda_function_launches_both_kernels(dev):
@@ -134,6 +239,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         stem_fwd(torch.zeros(1, 34, 32, 3, dtype=torch.uint8, device=dev), fw)
     with pytest.raises(ValueError):
         stem_fwd(torch.zeros(1, 32, 32, 3, device=dev), fw)
+    with pytest.raises(ValueError):  # fast mode needs the bf16 fragments
+        stem_fwd(torch.zeros(1, 32, 32, 3, dtype=torch.uint8, device=dev),
+                 {k: v for k, v in fw.items() if k != "wtc"}, fast=True)
     grad = torch.randn(1, 3, 16, device=dev)
     with pytest.raises(ValueError):
         msda_bwd(value, shapes, (0,), loc, attn, grad.double(), points)
