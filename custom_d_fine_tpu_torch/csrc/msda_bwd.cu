@@ -194,39 +194,6 @@ __global__ void __launch_bounds__(32 * DV_WARPS, 2) msda_bwd_dvalue_kernel(
   }
 }
 
-// V consecutive channels as f32: one 16-byte load for V = 8 (bf16) or 4 (f32)
-template <int V>
-__device__ __forceinline__ void load_vec(const float* p, float (&o)[V]) {
-  if constexpr (V == 4) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
-  } else if constexpr (V == 8) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 e = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    o[0] = f.x; o[1] = f.y; o[2] = f.z; o[3] = f.w;
-    o[4] = e.x; o[5] = e.y; o[6] = e.z; o[7] = e.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) o[i] = __ldg(p + i);
-  }
-}
-template <int V>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&o)[V]) {
-  if constexpr (V == 8) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) o[i] = __bfloat162float(p[i]);
-  }
-}
-
 // One warp per (b, q, head). Its 32 lanes are 32 >> lg slots of 1 << lg
 // lanes: a slot takes one point at a time, each of its lanes V channels of
 // the point's four corner rows (16-byte loads where V > 1), and the slot's

@@ -4,6 +4,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define MSDA_MAX_LEVELS 8
 #define MSDA_WARPS 8
@@ -16,6 +17,70 @@ struct Levels {
 __device__ __forceinline__ float load_val(const float* v, long i) { return __ldg(v + i); }
 __device__ __forceinline__ float load_val(const __nv_bfloat16* v, long i) {
   return __bfloat162float(v[i]);
+}
+
+// V consecutive channels as loaded: one 16-byte vector (V = 8 bf16 or 4 f32),
+// or for V = 1 one channel, already widened. load_raw issues the load and
+// unpack widens it to f32, so a kernel can issue many loads before it uses
+// any and keep them in 4 registers each meanwhile. A value-initialised Raw
+// unpacks to zeros.
+template <typename T, int V>
+struct Raw {
+  uint4 u;
+};
+template <typename T>
+struct Raw<T, 1> {
+  float x;
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> load_raw(const T* p) {
+  Raw<T, V> r;
+  if constexpr (V == 1) {
+    r.x = load_val(p, 0);
+  } else {
+    static_assert(V * sizeof(T) == 16, "a Raw vector is 16 bytes");
+    r.u = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack(const Raw<T, 1>& r, float* o) { o[0] = r.x; }
+__device__ __forceinline__ void unpack(const Raw<float, 4>& r, float* o) {
+  o[0] = __uint_as_float(r.u.x);
+  o[1] = __uint_as_float(r.u.y);
+  o[2] = __uint_as_float(r.u.z);
+  o[3] = __uint_as_float(r.u.w);
+}
+__device__ __forceinline__ void unpack(const Raw<__nv_bfloat16, 8>& r, float* o) {
+  const uint32_t w[4] = {r.u.x, r.u.y, r.u.z, r.u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // a bf16 is the top half of its f32
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// V consecutive channels as f32: 16-byte loads for V = 8 (bf16) or 4 and 8 (f32)
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&o)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) unpack(load_raw<float, 4>(p + i), o + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) o[i] = __ldg(p + i);
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&o)[V]) {
+  if constexpr (V == 8) {
+    unpack(load_raw<__nv_bfloat16, 8>(p), o);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) o[i] = __bfloat162float(p[i]);
+  }
 }
 
 // The four bilinear corners of a point at (lx, ly) in [0,1] on an H x W map

@@ -1,13 +1,27 @@
 """MSDA kernel wrappers (csrc/msda.cu forward, csrc/msda_bwd.cu backward),
 their plain PyTorch versions, and the autograd Function that joins them.
 
-Replaces the TPU kernels custom_d_fine_tpu/ops/pallas/msda_sep.py:_sep_kernel,
-ops/pallas/msda.py:_level_kernel and, in function, msda_sep.py:_sep_kernel_psum:
-one gather kernel over all levels, one warp per (b, q, head), one lane per
-channel, levels x points summed in f32 registers. Bound on the H100: a launch
-at D-FINE-m 640^2 bs1 moves ~2 MB and does ~10 flops per sampled channel, so
-it is latency-bound; the design keeps many independent coalesced row loads in
-flight (see the note in csrc/msda.cu).
+The forward replaces the TPU kernels
+custom_d_fine_tpu/ops/pallas/msda_sep.py:_sep_kernel, ops/pallas/msda.py:_level_kernel
+and, in function, msda_sep.py:_sep_kernel_psum: one gather kernel over all
+levels, levels x points summed in f32 registers. Bound on the H100: bytes
+(D-FINE-m 640^2: ~2.7 MB at bs1, 0.8 us; ~58.8 MB for the bf16 training
+step's bs16 x 500 queries, 17.5 us). The first design (one warp per
+(b, q, head), one lane per channel, every lane loading the same loc and attn
+and then its own narrow corner loads, point after point) took 0.117 ms at the
+training shapes: two dependent memory round trips per point. The current
+design prepares each point once (one lane per point: coalesced loc and attn,
+corners, weights), hands it to a slot of lanes by shuffles, loads 16 bytes
+of channels per lane with every corner of an item's points in flight at
+once, packs two items per warp where that leaves no slot idle, and sums the
+slots by halving exchanges into one coalesced row store. c not a multiple of
+the 16-byte width, or an unaligned pointer, takes the same kernel with one
+channel per lane. On one H100 (700 W) it takes ~0.045 ms at the training
+shapes (first design 0.116) and ~0.0035 ms at bs1 (0.0078): a warp's two
+dependent round trips (loc, then its corner rows) set the time. Dropped
+after measuring (source note in csrc/msda.cu): all rounds in flight at once,
+warps that loop over groups with the next loc prefetched, and staging the
+small levels in shared memory per (b, head).
 
 The backward replaces ops/pallas/msda_sep.py:_sep_bwd_kernel (levels of
 >= 1024 positions) and ops/pallas/msda.py:_level_bwd_kernel (small levels).

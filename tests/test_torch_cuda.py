@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes that reach the edge cases (H % 32 != 0, c < 32 and c > 32,
-ragged tiles, levels larger than one shared-memory slab of msda_bwd), plus
+c not a multiple of 16 bytes, more than 32 MSDA points, an unaligned value
+map, ragged tiles, levels larger than one shared-memory slab of msda_bwd), plus
 the wrappers' input checks. Marked `cuda`: each test
 skips where no GPU is present. This file imports no JAX, so it also runs on
 a machine that has only the port:
@@ -54,17 +55,32 @@ def test_stem_kernel_matches_plain(dev, M, O, use_lab, hw):
     torch.testing.assert_close(got, stem_fwd_plain(x, fw), rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("c", [8, 32, 64])
-def test_msda_kernel_matches_plain(dev, c):
-    shapes, points = [(12, 16), (6, 8), (3, 4)], [2, 3, 1]
-    g = torch.Generator().manual_seed(c)
-    B, Lq, nh = 2, 37, 3
+_LEVELS3 = ([(12, 16), (6, 8), (3, 4)], [2, 3, 1])
+_LEVELS4 = ([(12, 16), (6, 8), (3, 4), (2, 2)], [12, 12, 8, 4])  # 36 points an item
+
+
+def _msda_inputs(g, shapes, points, B, Lq, nh, c):
     Lv, P = sum(h * w for h, w in shapes), sum(points)
-    value = torch.randn(B, Lv, nh, c, generator=g).to(dev)
-    loc = (torch.rand(B, Lq, nh, P, 2, generator=g) * 1.4 - 0.2).to(dev)
+    value = torch.randn(B, Lv, nh, c, generator=g)
+    loc = torch.rand(B, Lq, nh, P, 2, generator=g) * 1.4 - 0.2
     loc[0, 0, 0, 0] = torch.tensor([1.0, 0.0])
     loc[1, 1, 1, 1] = torch.tensor([-5.0, 9.0])
-    attn = torch.rand(B, Lq, nh, P, generator=g).to(dev)
+    attn = torch.rand(B, Lq, nh, P, generator=g)
+    return value, loc, attn
+
+
+@pytest.mark.parametrize("c,levels", [
+    (6, _LEVELS3),    # c % 4 != 0: one channel a lane, in f32 and bf16
+    (8, _LEVELS3),    # bf16: one 16-byte lane an item row, four items a warp
+    (32, _LEVELS3),
+    (64, _LEVELS3),
+    (32, _LEVELS4),   # more than 32 points: prepared 32 at a time
+    (6, _LEVELS4),
+])
+def test_msda_kernel_matches_plain(dev, c, levels):
+    shapes, points = levels
+    g = torch.Generator().manual_seed(c)
+    value, loc, attn = (t.to(dev) for t in _msda_inputs(g, shapes, points, 2, 37, 3, c))
     starts = level_start_index(shapes)
     for v in (value, value.to(torch.bfloat16)):
         n = msda_fwd.launches
@@ -73,6 +89,26 @@ def test_msda_kernel_matches_plain(dev, c):
         assert msda_fwd.launches == n + 1 and got.dtype == torch.float32
         torch.testing.assert_close(got, msda_fwd_plain(v, shapes, starts, loc, attn, points),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_msda_kernel_unaligned_value(dev, dtype):
+    """A value map that is contiguous but starts one element past a 16-byte
+    boundary takes the one-channel-a-lane path and gives the plain result."""
+    shapes, points = _LEVELS3
+    g = torch.Generator().manual_seed(11)
+    value, loc, attn = (t.to(dev) for t in _msda_inputs(g, shapes, points, 2, 37, 3, 32))
+    buf = torch.empty(value.numel() + 1, dtype=dtype, device=dev)
+    shifted = buf[1:].view(value.shape)
+    shifted.copy_(value)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    starts = level_start_index(shapes)
+    got = msda_fwd(shifted, shapes, starts, loc, attn, points)
+    torch.cuda.synchronize()
+    want = msda_fwd_plain(shifted, shapes, starts, loc, attn, points)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    aligned = msda_fwd(value.to(dtype), shapes, starts, loc, attn, points)
+    torch.testing.assert_close(got, aligned, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("c", [6, 8, 32, 64])  # 6: the scalar paths (no 16-byte rows)

@@ -45,12 +45,15 @@ def _port(value, shapes, loc, attn, points):
     return out.numpy()
 
 
-@pytest.mark.parametrize("shapes,points", [
-    ([(6, 8), (3, 4)], [2, 3]),
-    ([(8, 8), (4, 4), (2, 2)], [3, 6, 3]),
+@pytest.mark.parametrize("shapes,points,c", [
+    pytest.param([(6, 8), (3, 4)], [2, 3], 8, id="shapes0-points0"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], [3, 6, 3], 8, id="shapes1-points1"),
+    # the CUDA kernel's other branches: more than 32 points an item, and c = 6
+    pytest.param([(8, 8), (4, 4), (2, 2), (1, 1)], [12, 12, 8, 4], 8, id="36-points"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], [3, 6, 3], 6, id="c6"),
 ])
-def test_plain_matches_xla(shapes, points):
-    value, loc, attn = _inputs(shapes, points)
+def test_plain_matches_xla(shapes, points, c):
+    value, loc, attn = _inputs(shapes, points, c=c)
     want = np.asarray(ms_deform_attn_xla(jnp.asarray(value), shapes, jnp.asarray(loc),
                                          jnp.asarray(attn), points))
     np.testing.assert_allclose(_port(value, shapes, loc, attn, points), want, **TOL)
