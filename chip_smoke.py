@@ -4,7 +4,6 @@
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --checks-only   # build + kernel checks only
     python3 chip_smoke.py --report out/chip_smoke.json   # also write the details
-    python3 chip_smoke.py --fwd-variants [ROOT,...]       # diagnostic: MSDA forward builds
 
 Phases, in order; each raises on failure, and the script then exits non-zero
 without printing its final line:
@@ -17,9 +16,9 @@ without printing its final line:
      over back-to-back calls as a second reading), with its bound on the card.
      The stem in both modes (exact f32; fast: bf16 operands on the tensor
      cores, as served) and the MSDA forward at the serving shapes (plus 36
-     points on 4 levels, and c = 6), the MSDA forward and backward at the
-     training shapes (B = 2 and 16, 500 queries, f32 and bf16 values, plus a
-     level wider than one shared-memory slab).
+     points on 4 levels, and c = 6, 36 and 160), the MSDA forward and
+     backward at the training shapes (B = 2 and 16, 500 queries, f32 and
+     bf16 values, plus a level wider than one shared-memory slab).
   4. serving: build_serving("m", 80, (640, 640)) with the port's own random
      init; serves uint8 batches at bs1 and bs4 with every launch counter set
      to 0 just before and read just after; checks the detections; compares
@@ -363,8 +362,7 @@ def msda_rows(torch, value, loc):
 def msda_work(torch, value, loc, attn):
     """Bytes and flops this data needs: each value row that a valid corner
     touches, read once; loc/attn read once; out written once. Also the bytes
-    of all valid corners' rows, each counted every time a corner loads it
-    (what the kernel fetches through L2)."""
+    of all valid corners' rows, each counted every time a corner loads it."""
     B, Lv, h, c = value.shape
     n_rows, n_valid = msda_rows(torch, value, loc)
     bytes_ = (n_rows * c * value.element_size() + loc.numel() * 4 + attn.numel() * 4
@@ -441,12 +439,16 @@ def check_msda(torch, report):
             raise AssertionError(f"msda kernel disagrees with its plain version: "
                                  f"{e32}, {e16}, {e16_f32}")
         errs[(B, Lq)] = (e32, e16)
-    # the kernel's other branches: more than 32 points an item (prepared 32 at
-    # a time, one item a warp) and c = 6 (no 16-byte channel vectors: one
-    # channel a lane), f32 and bf16 value maps, at the serving shapes
+    # the kernel's other branches, f32 and bf16 value maps, at the serving
+    # shapes: more than 32 points an item (prepared 32 at a time, one item a
+    # warp); c = 6 (no 16-byte channel vectors: one channel a lane); more
+    # channel groups than a warp's lanes, which loop: c = 36 (bf16 one channel
+    # a lane, 36 groups) and c = 160 (f32 40 groups of 4)
     for label, shapes, points, c in (("Ptot=36 on 4 levels", SHAPES + [(10, 10)],
                                       [12, 12, 8, 4], CH),
-                                     ("c=6", SHAPES, POINTS, 6)):
+                                     ("c=6", SHAPES, POINTS, 6),
+                                     ("c=36", SHAPES, POINTS, 36),
+                                     ("c=160", SHAPES, POINTS, 160)):
         st = level_start_index(shapes)
         Lv, P = sum(h * w for h, w in shapes), sum(points)
         v32 = torch.randn(2, Lv, HEADS, c, generator=g).cuda()
@@ -512,8 +514,8 @@ def check_msda(torch, report):
     log(f"[msda] bs16 Lq={LQ_TRAIN} bf16 value (training), device time: kernel "
         f"{t_k['ms']:.4f} ms | plain {t_p['ms']:.4f} ms | grid_sample {lib} ms | bound "
         f"{b_ms * 1e3:.2f} us ({b_by}; {bytes_ / 1e6:.2f} MB, {n_rows} value rows); every "
-        f"valid corner's row: {corner_bytes / 1e6:.2f} MB, {corner_bytes / t_k['ms'] / 1e9:.2f} "
-        f"TB/s through L2")
+        f"valid corner's row: {corner_bytes / 1e6:.2f} MB; corner-row bytes / kernel time "
+        f"{corner_bytes / t_k['ms'] / 1e9:.2f} TB/s")
     report["msda_calls"] = rows
     r, rt = rows["bf16"], rows["train_bf16"]
     return {"name": "msda_fwd", "route": "cuda",
@@ -527,7 +529,7 @@ def check_msda(torch, report):
             "library_ms": r["library_ms"],
             "shape": "B=1 Lq=300 8x32 levels 80/40/20 points 3/6/3, bf16 value",
             "checked_shapes": "B=1 and 4 at Lq=300, B=16 at Lq=500; B=2 Lq=300 with 36 points "
-                              "on 4 levels and with c=6; f32 and bf16 value",
+                              "on 4 levels and with c=6, 36, 160; f32 and bf16 value",
             "cuda_events_ms": r["cuda_events_ms"], "plain_cuda_events_ms": r["plain_cuda_events_ms"],
             "library_cuda_events_ms": r["library_cuda_events_ms"],
             "train": {"shape": "B=16 Lq=500, bf16 value", **rt}}
@@ -627,112 +629,6 @@ def check_msda_bwd(torch, report):
            "library_cuda_events_ms": t_l["cuda_events_ms"]}
     report["msda_bwd_calls"] = row
     return row
-
-
-# ------------------------------------------------- diagnostic: --fwd-variants
-# csrc/msda.cu built with other values of its tuning macros (the first entry
-# is the default build; "probe" stamps the warps of the first PROBE_WARPS)
-PROBE_WARPS = 65536
-FWD_VARIANTS = {"default (RU=2, 4 warps)": [], "RU=3": ["-DMSDA_FWD_RU=3"],
-                "RU=4": ["-DMSDA_FWD_RU=4"], "2 warps": ["-DMSDA_FWD_WARPS=2"],
-                "8 warps": ["-DMSDA_FWD_WARPS=8"], "<=64 regs": ["-DMSDA_FWD_MINBLOCKS=8"],
-                "RU=3, <=80 regs": ["-DMSDA_FWD_RU=3", "-DMSDA_FWD_MINBLOCKS=6"],
-                "RU=4, <=80 regs": ["-DMSDA_FWD_RU=4", "-DMSDA_FWD_MINBLOCKS=6"],
-                "one item a warp": ["-DMSDA_FWD_MAX_G=1"],
-                "one item a warp, 2 warps": ["-DMSDA_FWD_MAX_G=1", "-DMSDA_FWD_WARPS=2"],
-                "probe": [f"-DMSDA_FWD_PROBE={PROBE_WARPS}"]}
-
-
-def probe_summary(lib):
-    """The stamps of the probe build's last launch (csrc/msda.cu, MSDA_FWD_PROBE):
-    the launch's span and how its warps' starts spread, and per warp (median)
-    its ns start to end and the clock cycles to its prepared points, to its
-    summed corner rows and to its store."""
-    import ctypes
-
-    import numpy as np
-
-    buf = (ctypes.c_longlong * (6 * PROBE_WARPS))()
-    fn = lib.msda_fwd_probe_read
-    fn.restype, fn.argtypes = ctypes.c_long, [ctypes.c_void_p]
-    n = fn(buf)
-    a = np.frombuffer(buf, dtype=np.int64, count=6 * n).reshape(n, 6)
-    a = a[a[:, 5] > 0]  # warps of the grid that had no group stamp nothing
-    start = a[:, 4] - a[:, 4].min()
-    med = lambda x: float(np.median(x))  # noqa: E731
-    return {"warps": len(a), "span_ns": int(a[:, 5].max() - a[:, 4].min()),
-            "start_ns_p50": med(start), "start_ns_max": int(start.max()),
-            "warp_ns": med(a[:, 5] - a[:, 4]), "prepare_cycles": med(a[:, 1] - a[:, 0]),
-            "rows_cycles": med(a[:, 2] - a[:, 1]), "store_cycles": med(a[:, 3] - a[:, 2])}
-
-
-def fwd_variants(torch, report, roots):
-    """Times builds of the MSDA forward against each other inside one call:
-    csrc/msda.cu with each FWD_VARIANTS define set and, where `roots` names
-    the roots of other checkouts (comma-separated), their csrc/msda.cu. Each is held
-    against the plain version, then timed (device time) at bs1 bf16 and f32
-    and at the training shapes, in the order A B ... then ... B A."""
-    import ctypes
-
-    from custom_d_fine_tpu_torch.ops import _ext
-    from custom_d_fine_tpu_torch.ops.msda import level_start_index, msda_fwd, msda_fwd_plain
-
-    srcs = {k: (_ext.CSRC / "msda.cu", f) for k, f in FWD_VARIANTS.items()}
-    if roots:
-        for root in roots.split(","):
-            srcs[os.path.basename(os.path.normpath(root))] = (
-                os.path.join(root, "custom_d_fine_tpu_torch", "csrc", "msda.cu"), [])
-    out_dir = _ext.build_dir() / "variants"
-    procs = {}
-    for i, (name, (src, flags)) in enumerate(srcs.items()):
-        lib = out_dir / str(i) / "libmsda.so"
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        procs[name] = (lib, subprocess.Popen(
-            [_ext._nvcc(), *_ext.NVCC_FLAGS, "-Xptxas", "-v", *flags, "-o", str(lib), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} failed:\n{text}")
-        fns = re.findall(r"Compiling entry function '_Z\d+(\w+?)EEv", text)
-        regs = re.findall(r"Used (\d+) registers", text)
-        spills = re.findall(r"(\d+) bytes spill stores", text)
-        log(f"[variants] {name}: ptxas registers " + ", ".join(
-            f"{f} {r} (spill {sp} B)" for f, r, sp in zip(fns, regs, spills)))
-        libs[name] = ctypes.CDLL(str(lib))
-    g = torch.Generator().manual_seed(8)
-    starts = level_start_index(SHAPES)
-    v32, loc1, attn1 = msda_inputs(torch, 1, g, torch.float32)
-    vt, loct, attnt = msda_inputs(torch, 16, g, torch.float32, Lq=LQ_TRAIN)
-    shapes = {"bs1 bf16": (v32.to(torch.bfloat16), loc1, attn1),
-              "bs1 f32": (v32, loc1, attn1),
-              "train bf16": (vt.to(torch.bfloat16), loct, attnt)}
-    order = list(libs) + list(reversed(list(libs)))
-    default_lib = _ext.load("msda")
-    res = {name: {k: [] for k in shapes} for name in libs}
-    try:
-        for k, (v, loc, attn) in shapes.items():
-            want = msda_fwd_plain(v, SHAPES, starts, loc, attn, POINTS)
-            for name in order:
-                _ext._libs["msda"] = libs[name]
-                got = msda_fwd(v, SHAPES, starts, loc, attn, POINTS)
-                torch.cuda.synchronize()
-                if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
-                    raise AssertionError(f"variant {name} disagrees at {k}: "
-                                         f"{(got - want).abs().max().item()}")
-                t = time_call(lambda: msda_fwd(v, SHAPES, starts, loc, attn, POINTS), iters=50)
-                res[name][k].append(t["ms"])
-                if name == "probe":
-                    p = probe_summary(libs[name])
-                    log(f"[variants] probe at {k}: " + ", ".join(f"{a} {b:g}" for a, b in p.items()))
-                    report.setdefault("fwd_probe", {}).setdefault(k, []).append(p)
-    finally:
-        _ext._libs["msda"] = default_lib
-    for name, by in res.items():
-        log(f"[variants] {name}: " + " | ".join(
-            f"{k} {min(t):.4f} ms ({', '.join('%.4f' % x for x in t)})" for k, t in by.items()))
-    report["fwd_variants"] = res
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1072,10 +968,6 @@ def main() -> int:
                     help="stop after the kernel checks (no serving or training phase)")
     ap.add_argument("--verbose-build", action="store_true", help="nvcc -Xptxas -v")
     ap.add_argument("--report", metavar="PATH", help="write every reading to this JSON file")
-    ap.add_argument("--fwd-variants", metavar="ROOTS", nargs="?", const="",
-                    help="diagnostic: after the build, time csrc/msda.cu's tuning variants "
-                         "(and the msda.cu of each checkout in the comma-separated ROOTS) "
-                         "against each other, then stop")
     args = ap.parse_args()
     report = {}
     try:
@@ -1086,13 +978,6 @@ def main() -> int:
         phase_build(report, args.verbose_build)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        if args.fwd_variants is not None:
-            fwd_variants(torch, report, args.fwd_variants)
-            if args.report:
-                os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
-                with open(args.report, "w") as f:
-                    json.dump(report, f, indent=1, default=str)
-            return 0
         rows = [check_stem(torch, report), check_msda(torch, report),
                 check_msda_bwd(torch, report)]
         paths = {}

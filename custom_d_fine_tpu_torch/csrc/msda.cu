@@ -40,7 +40,7 @@
 //    and weights from the preparing lane with __shfl_sync. Its lanes each
 //    hold V channels: 16 bytes (8 bf16 or 4 f32), so at c = 32 in bf16 a
 //    slot is 4 lanes and a warp serves 8 points per round. Each slot issues
-//    the four corner loads of MSDA_FWD_RU rounds before it uses any of them.
+//    the four corner loads of RU = 2 rounds before it uses any of them.
 // 3. G is the smallest count of items per warp that leaves no slot idle in
 //    the last round: G = 2 at 12 points in bf16 (two items of 4 slots, 3
 //    rounds), G = 1 in f32 (4 slots of 8 lanes, 3 rounds).
@@ -55,10 +55,11 @@
 //    groups of 32 V channels; more than 32 points are prepared 32 at a time.
 // Items of one image are neighbours in the grid, so its value map stays in L2.
 //
-// Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py; the variants with
-// --fwd-variants, all in one call beside the first design): 0.0034 ms at bs1
-// bf16, 0.0038 f32, 0.0454 at the training shapes (first design 0.0078,
-// 0.0103, 0.1163). A clock64 probe (-DMSDA_FWD_PROBE) splits a warp's time:
+// Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py; the variants below
+// were built from this source with other constants and timed in one call
+// beside the first design): 0.0034 ms at bs1 bf16, 0.0038 f32, 0.0454 at the
+// training shapes (first design 0.0078, 0.0103, 0.1163). A clock64 probe in a
+// diagnostic build (since removed) split a warp's time:
 // at bs1 all 1,200 warps start within 0.1 us and each takes 2.4 us, ~1,860
 // cycles until its loc/attn arrive and ~2,480 until its corner rows are
 // summed; the launch and those two dependent round trips are the bs1 time,
@@ -69,7 +70,7 @@
 //   109-128 registers leave 16 warps an SM, too few for bs1 f32's 2,400.
 // - capping registers (launch bounds) at 64 or 80: spills, 0.050-0.23.
 // - 2 or 8 warps a block: 0.0450 / 0.0034 / 0.0040 and 0.0524 / 0.0036 / 0.0040.
-// - one item a warp (no packing, MSDA_FWD_MAX_G=1): 0.0673 at training.
+// - one item a warp (no packing): 0.0673 at training.
 // - a grid of resident warps that loop over groups, loading the next group's
 //   loc/attn while this group's rows arrive: 105 registers, 0.0482 / 0.0037 / 0.0053.
 // - asking L2 for the loc/attn of the groups one wave ahead
@@ -84,45 +85,8 @@
 
 #include "msda_common.cuh"
 
-#ifndef MSDA_FWD_WARPS
-#define MSDA_FWD_WARPS 4  // warps of a block
-#endif
-#ifndef MSDA_FWD_RU
-#define MSDA_FWD_RU 2  // rounds of points whose corner loads a slot issues before any use
-#endif
-#ifndef MSDA_FWD_MINBLOCKS
-#define MSDA_FWD_MINBLOCKS 1  // blocks an SM must hold: caps the registers a thread gets
-#endif
-#ifndef MSDA_FWD_MAX_G
-#define MSDA_FWD_MAX_G 32  // items a warp may serve at once (1: no packing)
-#endif
-
-#ifdef MSDA_FWD_PROBE
-// Diagnostic build (-DMSDA_FWD_PROBE=<warps>): lane 0 of each of the first
-// <warps> warps stamps clock64 at its start, once its points are prepared
-// (loc and attn arrived), once its corner rows have arrived and been summed,
-// and after its store, and %globaltimer at its start and end.
-__device__ long long msda_fwd_probe_buf[6 * MSDA_FWD_PROBE];
-static long msda_fwd_probe_warps = 0;
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define PROBE(k, when, dep)                                                             \
-  do {                                                                                  \
-    if ((when) && lane == 0 && wid < MSDA_FWD_PROBE) {                                  \
-      if ((dep) == -1.2345e-38f) __nanosleep(1); /* waits for dep to arrive */          \
-      msda_fwd_probe_buf[6 * wid + (k)] = clock64();                                    \
-      if ((k) == 0) msda_fwd_probe_buf[6 * wid + 4] = global_ns();                      \
-      if ((k) == 3) msda_fwd_probe_buf[6 * wid + 5] = global_ns();                      \
-    }                                                                                   \
-  } while (0)
-#else
-#define PROBE(k, when, dep) \
-  do {                      \
-  } while (0)
-#endif
+constexpr int kWarps = 4;  // warps of a block
+constexpr int kRU = 2;     // rounds of points whose corner loads a slot issues before any use
 
 // The lanes of a warp: G items x (1 << lgs) slots x (1 << lg) lanes, and
 // the points of each item that one preparation covers (pb; lane = g * pb + point).
@@ -131,18 +95,14 @@ struct FwdLayout {
 };
 
 template <typename T, int V>
-__global__ void __launch_bounds__(32 * MSDA_FWD_WARPS, MSDA_FWD_MINBLOCKS) msda_fwd_kernel(
+__global__ void __launch_bounds__(32 * kWarps) msda_fwd_kernel(
     const T* __restrict__ value, const float* __restrict__ loc,
     const float* __restrict__ attn, float* __restrict__ out,
     int Lv, int nh, int c, int Lq, int Ptot, long items, Levels lv, FwdLayout ly) {
   constexpr unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  const long item0 = ((long)blockIdx.x * MSDA_FWD_WARPS + (threadIdx.x >> 5)) * ly.G;
+  const long item0 = ((long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * ly.G;
   if (item0 >= items) return;  // whole warps leave together
-#ifdef MSDA_FWD_PROBE
-  const long wid = (long)blockIdx.x * MSDA_FWD_WARPS + (threadIdx.x >> 5);
-#endif
-  PROBE(0, true, 0.f);
   const int S = 1 << ly.lg, SPI = 1 << ly.lgs;
   const int sub = lane & (S - 1), si = (lane >> ly.lg) & (SPI - 1);
   const int g = lane >> (ly.lg + ly.lgs);
@@ -192,13 +152,12 @@ __global__ void __launch_bounds__(32 * MSDA_FWD_WARPS, MSDA_FWD_MINBLOCKS) msda_
         w2 = a * (1.f - q.tx) * q.ty;
         w3 = a * q.tx * q.ty;
       }
-      PROBE(1, j0 == 0 && p0 == 0, w0);
       // ---- one point per slot and round: all corner loads first, then the sums
-      for (int r0 = p0; r0 < pend; r0 += MSDA_FWD_RU * SPI) {
-        Raw<T, V> v[MSDA_FWD_RU][4];
-        float w[MSDA_FWD_RU][4];
+      for (int r0 = p0; r0 < pend; r0 += kRU * SPI) {
+        Raw<T, V> v[kRU][4];
+        float w[kRU][4];
 #pragma unroll
-        for (int u = 0; u < MSDA_FWD_RU; ++u) {
+        for (int u = 0; u < kRU; ++u) {
           if (r0 + u * SPI >= pend) break;  // uniform over the warp
           const int pu = r0 + u * SPI + si;
           const bool on = ch_on && pu < pend;
@@ -219,7 +178,7 @@ __global__ void __launch_bounds__(32 * MSDA_FWD_WARPS, MSDA_FWD_MINBLOCKS) msda_
           }
         }
 #pragma unroll
-        for (int u = 0; u < MSDA_FWD_RU; ++u) {
+        for (int u = 0; u < kRU; ++u) {
           if (r0 + u * SPI >= pend) break;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -232,7 +191,6 @@ __global__ void __launch_bounds__(32 * MSDA_FWD_WARPS, MSDA_FWD_MINBLOCKS) msda_
       }
     }
 
-    PROBE(2, j0 == 0, acc[0]);
     // ---- sum over the item's slots: halving exchanges, then xor steps
     int m = ly.lgs > 0 ? S << (ly.lgs - 1) : 0;  // the item's highest slot bit
     int kept = V, pos = 0;
@@ -274,7 +232,6 @@ __global__ void __launch_bounds__(32 * MSDA_FWD_WARPS, MSDA_FWD_MINBLOCKS) msda_
       }
     }
   }
-  PROBE(3, true, 0.f);
 }
 
 template <typename T>
@@ -299,7 +256,7 @@ static int launch(const T* value, const float* loc, const float* attn, float* ou
   // items per warp: the fewest that leave the fewest slots idle in an item's
   // last round; more than one only where all their points fit one preparation
   int G = 1, idle = 1 << 30;
-  for (int gi = 1; gi <= ns && gi <= MSDA_FWD_MAX_G; gi *= 2) {
+  for (int gi = 1; gi <= ns; gi *= 2) {
     if (gi > 1 && gi * Ptot > 32) break;
     const int spi = ns / gi, waste = (Ptot + spi - 1) / spi * spi - Ptot;
     if (waste < idle) {
@@ -312,16 +269,13 @@ static int launch(const T* value, const float* loc, const float* attn, float* ou
   while ((1 << ly.lgs) * G < ns) ++ly.lgs;
   ly.pb = G > 1 ? Ptot : (Ptot < 32 ? (Ptot > 0 ? Ptot : 1) : 32);
   const long warps = (items + G - 1) / G;
-#ifdef MSDA_FWD_PROBE
-  msda_fwd_probe_warps = warps < MSDA_FWD_PROBE ? warps : MSDA_FWD_PROBE;
-#endif
-  const unsigned grid = (unsigned)((warps + MSDA_FWD_WARPS - 1) / MSDA_FWD_WARPS);
+  const unsigned grid = (unsigned)((warps + kWarps - 1) / kWarps);
   if (vec)
-    msda_fwd_kernel<T, V><<<grid, 32 * MSDA_FWD_WARPS, 0, s>>>(value, loc, attn, out, Lv, nh,
-                                                                c, Lq, Ptot, items, lv, ly);
+    msda_fwd_kernel<T, V><<<grid, 32 * kWarps, 0, s>>>(value, loc, attn, out, Lv, nh, c, Lq,
+                                                        Ptot, items, lv, ly);
   else
-    msda_fwd_kernel<T, 1><<<grid, 32 * MSDA_FWD_WARPS, 0, s>>>(value, loc, attn, out, Lv, nh,
-                                                                c, Lq, Ptot, items, lv, ly);
+    msda_fwd_kernel<T, 1><<<grid, 32 * kWarps, 0, s>>>(value, loc, attn, out, Lv, nh, c, Lq,
+                                                        Ptot, items, lv, ly);
   return (int)cudaGetLastError();
 }
 
@@ -340,13 +294,3 @@ extern "C" int msda_fwd(const void* value, int value_bf16, const void* loc, cons
                 Lv, nh, c, Lq, Ptot, lv, s);
 }
 
-#ifdef MSDA_FWD_PROBE
-// The probe's stamps of the last launch's warps (6 per warp, see above) into
-// dst, which holds room for MSDA_FWD_PROBE warps. Returns the warp count.
-extern "C" long msda_fwd_probe_read(long long* dst) {
-  if (cudaMemcpyFromSymbol(dst, msda_fwd_probe_buf, 6 * 8 * msda_fwd_probe_warps) !=
-      cudaSuccess)
-    return -1;
-  return msda_fwd_probe_warps;
-}
-#endif

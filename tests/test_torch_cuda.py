@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes that reach the edge cases (H % 32 != 0, c < 32 and c > 32,
-c not a multiple of 16 bytes, more than 32 MSDA points, an unaligned value
-map, ragged tiles, levels larger than one shared-memory slab of msda_bwd), plus
-the wrappers' input checks. Marked `cuda`: each test
+c not a multiple of 16 bytes, more channel groups than a warp has lanes,
+more than 32 MSDA points, an unaligned value map, ragged tiles, levels
+larger than one shared-memory slab of msda_bwd), plus the wrappers' input
+checks. Marked `cuda`: each test
 skips where no GPU is present. This file imports no JAX, so it also runs on
 a machine that has only the port:
 
@@ -76,6 +77,8 @@ def _msda_inputs(g, shapes, points, B, Lq, nh, c):
     (64, _LEVELS3),
     (32, _LEVELS4),   # more than 32 points: prepared 32 at a time
     (6, _LEVELS4),
+    (36, _LEVELS3),   # bf16: one channel a lane, 36 groups: two passes of the warp
+    (160, _LEVELS3),  # f32: 40 groups of 4 channels: two passes of the warp
 ])
 def test_msda_kernel_matches_plain(dev, c, levels):
     shapes, points = levels
@@ -91,13 +94,14 @@ def test_msda_kernel_matches_plain(dev, c, levels):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("c", [32, 64])  # 64: two passes of the warp over the channels
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_msda_kernel_unaligned_value(dev, dtype):
+def test_msda_kernel_unaligned_value(dev, dtype, c):
     """A value map that is contiguous but starts one element past a 16-byte
     boundary takes the one-channel-a-lane path and gives the plain result."""
     shapes, points = _LEVELS3
     g = torch.Generator().manual_seed(11)
-    value, loc, attn = (t.to(dev) for t in _msda_inputs(g, shapes, points, 2, 37, 3, 32))
+    value, loc, attn = (t.to(dev) for t in _msda_inputs(g, shapes, points, 2, 37, 3, c))
     buf = torch.empty(value.numel() + 1, dtype=dtype, device=dev)
     shifted = buf[1:].view(value.shape)
     shifted.copy_(value)

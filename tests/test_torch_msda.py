@@ -51,6 +51,7 @@ def _port(value, shapes, loc, attn, points):
     # the CUDA kernel's other branches: more than 32 points an item, and c = 6
     pytest.param([(8, 8), (4, 4), (2, 2), (1, 1)], [12, 12, 8, 4], 8, id="36-points"),
     pytest.param([(8, 8), (4, 4), (2, 2)], [3, 6, 3], 6, id="c6"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], [3, 6, 3], 36, id="c36"),
 ])
 def test_plain_matches_xla(shapes, points, c):
     value, loc, attn = _inputs(shapes, points, c=c)
