@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's D-FINE-m serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's D-FINE-m serving, training and Trainer paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --checks-only   # build + kernel checks only
@@ -34,6 +34,17 @@ without printing its final line:
      stem); checks the loss terms; profiles steps for the device's busy time
      and idle share; compares one f32 step (TF32 off, bs2 at 320^2) with the
      same step on a CPU copy.
+  6. trainer: the port's Trainer (train/trainer.py) on a synthetic YOLO set
+     of 64 train and 16 val JPEGs: one epoch of D-FINE-m at 640^2, bs16,
+     bf16, EMA on, mosaic and multiscale, 4 loader threads, in a process
+     group of world size 1 on NCCL (parallel/dist.py), then eval on the EMA
+     and checkpoints; every launch counter set to 0 just before train() and
+     read just after (4 MSDA forward launches per step and eval batch, 4
+     backward per step, no stem); checks the loss, the parameters and the
+     metrics' keys; a second Trainer loads `last` and must hold the model,
+     EMA and AdamW state exactly. Prints the epoch's wall time, the img/s
+     inside the Trainer beside phase 5's, the share of the epoch spent
+     waiting on the loader, the eval's wall time and which mAP matcher ran.
 Each profile also gives the device time per launch of each of the port's
 own kernels on that path, wherever it ranks.
 Prints a {"kernels": [...]} line, the card's line, and last
@@ -962,6 +973,177 @@ def phase_training(torch, report, batch_size=16, n_warmup=3, n_steps=10):
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+# the JAX Trainer's metrics after an epoch (Validator.compute_metrics, then
+# the epoch and its mean training loss; custom_d_fine_tpu/train/trainer.py)
+TRAINER_METRIC_KEYS = {"f1", "precision", "recall", "iou", "TPs", "FPs", "FNs", "mAP_50",
+                       "mAP_50_95", "epoch", "train_loss"}
+
+
+def write_yolo_set(root, n_train, n_val, num_classes, seed=0):
+    """A synthetic YOLO set: JPEGs of 640x480 and 480x640 (grey ground, a few
+    coloured rectangles, mild noise), each rectangle a label row; 1-12
+    objects an image; train.csv and val.csv."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "labels"))
+    names = []
+    for i in range(n_train + n_val):
+        h, w = (480, 640) if i % 2 else (640, 480)
+        img = np.clip(rng.normal(110, 12, (h, w, 3)), 0, 255).astype(np.uint8)
+        rows = []
+        for _ in range(int(rng.integers(1, 13))):
+            bw, bh = int(rng.integers(24, w // 3)), int(rng.integers(24, h // 3))
+            x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            cls = int(rng.integers(0, num_classes))
+            img[y1:y1 + bh, x1:x1 + bw] = rng.integers(0, 256, 3)
+            rows.append(f"{cls} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
+                        f"{bw / w:.6f} {bh / h:.6f}")
+        name = f"im{i:03d}.jpg"
+        cv2.imwrite(os.path.join(root, "images", name), img)
+        with open(os.path.join(root, "labels", f"im{i:03d}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        names.append(name)
+    for split, part in (("train", names[:n_train]), ("val", names[n_train:])):
+        with open(os.path.join(root, f"{split}.csv"), "w") as f:
+            f.write("\n".join(part) + "\n")
+
+
+def phase_trainer(torch, report, overrides=()):
+    """The port's Trainer for one epoch of D-FINE-m at full width and depth
+    (bf16, EMA on, mosaic, multiscale, 4 loader threads) in a process group
+    of world size 1 on NCCL, with its eval on the EMA and its checkpoints;
+    then a second Trainer that loads `last`. Counts set to 0 just before
+    train() and read just after. `overrides` (k=v) go last, for a rehearsal
+    at a smaller size."""
+    import shutil
+    import socket
+    import tempfile
+
+    from custom_d_fine_tpu_torch.eval import cocomatch_native
+    from custom_d_fine_tpu_torch.ops.msda import msda_bwd, msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+    from custom_d_fine_tpu_torch.parallel import dist
+    from custom_d_fine_tpu_torch.train.trainer import Trainer
+    from custom_d_fine_tpu_torch.utils.config import load_config
+
+    num_classes, n_train, n_val = 80, 64, 16
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "data")
+        write_yolo_set(data, n_train, n_val, num_classes)
+        log(f"[trainer] synthetic YOLO set: {n_train} train + {n_val} val JPEGs (640x480 and "
+            f"480x640, 1-12 boxes) in {time.perf_counter() - t0:.1f} s")
+        cfg = load_config(overrides=[
+            "model_name=m", f"train.data_path={data}", f"train.path_to_save={tmp}/run",
+            "train.epochs=1", "train.batch_size=16", "train.num_workers=4",
+            f"train.img_size=[{IMG[0]},{IMG[1]}]", "train.dtype=bfloat16", "train.use_ema=true",
+            "train.mosaic_augs.mosaic_prob=0.8", "train.mosaic_augs.no_mosaic_epochs=0",
+            "train.augs.multiscale_prob=0.5", "exp_name=chip_smoke", *overrides])
+        cfg["train"]["label_to_name"] = {i: f"class_{i}" for i in range(num_classes)}
+        device, batch_size, img = (cfg["train"][k] for k in ("device", "batch_size", "img_size"))
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                          WORLD_SIZE="1", LOCAL_RANK="0")
+        world = dist.init_from_env(device)
+        backend = torch.distributed.get_backend()
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg)
+        log(f"[trainer] Trainer('{cfg['model_name']}', {img[0]}x{img[1]}, bs{batch_size}, "
+            f"{cfg['train']['dtype']}, EMA) on "
+            f"{trainer.device}, process group {backend} of world size {world[0]}, in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        steps, step_fn = [], trainer.train_step  # each step's canvas and host time
+
+        def timed_step(state, batch, generator):
+            t1 = time.perf_counter()
+            out = step_fn(state, batch, generator)
+            steps.append((tuple(batch["images"].shape[1:3]), (time.perf_counter() - t1) * 1e3))
+            return out
+
+        trainer.train_step = timed_step
+
+        # ---- the main path: counts set to 0 just before, read just after
+        stem_fwd.launches = msda_fwd.launches = msda_bwd.launches = 0
+        t0 = time.perf_counter()
+        history = trainer.train()
+        wall = time.perf_counter() - t0
+        launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches,
+                    "msda_bwd": msda_bwd.launches}
+        t = trainer.timings[0]
+        n_eval = -(-n_val // batch_size)
+        n_layers = trainer.model_cfg.decoder.num_layers
+        want = {"stem_fwd": 0, "msda_fwd": n_layers * (t["steps"] + n_eval),
+                "msda_bwd": n_layers * t["steps"]}
+        log(f"[trainer] 1 epoch: {t['steps']} steps + {n_eval} eval batches: launches "
+            f"{launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"expected launches {want}, got {launches}")
+        m = history[0]
+        if set(m) != TRAINER_METRIC_KEYS:
+            raise AssertionError(f"metrics keys {sorted(m)} are not the JAX Trainer's "
+                                 f"{sorted(TRAINER_METRIC_KEYS)}")
+        params = list(trainer.state.model.parameters())
+        finite = bool(torch.stack([p.detach().float().abs().max() for p in params]).isfinite()
+                      .all())
+        if not (math.isfinite(m["train_loss"]) and finite):
+            raise AssertionError(f"non-finite training: loss {m['train_loss']}, params "
+                                 f"finite {finite}")
+        bare = report.get("training", {}).get("img_per_s")
+        img_s = t["images"] / t["train_s"]
+        native = cocomatch_native.available()
+        log(f"[trainer] epoch wall {t['epoch_s']:.2f} s (train() {wall:.2f} s): training "
+            f"{t['train_s']:.2f} s for {t['images']} images = {img_s:.1f} img/s in the "
+            f"Trainer" + (f" (bare step, phase 5: {bare:.1f} img/s)" if bare else "")
+            + f"; waiting on the loader {t['loader_wait_s']:.2f} s = "
+            f"{t['loader_wait_s'] / t['epoch_s']:.3f} of the epoch; eval "
+            f"{t['eval_s']:.2f} s; checkpoints {t['checkpoint_s']:.2f} s")
+        log("[trainer] steps (canvas, host ms of the step call; the step waits for the "
+            "card at the matcher's copy): " + ", ".join(f"{h}x{w} {ms:.1f}"
+                                                     for (h, w), ms in steps))
+        log(f"[trainer] metrics: train_loss {m['train_loss']:.4f}, f1 {m['f1']:.4f}, mAP_50 "
+            f"{m['mAP_50']:.4f}; mAP matched by the "
+            f"{'native C++ cocomatch' if native else 'numpy matcher (native build failed)'}")
+
+        # ---- resume: a second Trainer loads `last`
+        t0 = time.perf_counter()
+        again = Trainer(cfg)
+        again.load_checkpoint("last")
+        resume_s = time.perf_counter() - t0
+        a, b = trainer.state, again.state
+        same = all(torch.equal(x, y) for x, y in zip(a.model.state_dict().values(),
+                                                   b.model.state_dict().values()))
+        same &= all(torch.equal(a.ema[k], b.ema[k]) for k in a.ema)
+        sa, sb = a.optimizer.adamw.state_dict(), b.optimizer.adamw.state_dict()
+        same &= sa["state"].keys() == sb["state"].keys() and all(
+            torch.equal(sa["state"][i][k], sb["state"][i][k])
+            for i in sa["state"] for k in ("exp_avg", "exp_avg_sq", "step"))
+        same &= ((a.optimizer.count, a.optimizer.mini_step, a.step, trainer.epoch)
+                 == (b.optimizer.count, b.optimizer.mini_step, b.step, again.epoch))
+        if not same:
+            raise AssertionError("the Trainer resumed from `last` differs from the saved one")
+        log(f"[trainer] resume: a second Trainer loaded `last` in {resume_s:.2f} s; model, "
+            f"EMA, AdamW state, count {b.optimizer.count} and step {b.step} equal the saved "
+            f"ones exactly")
+        report["trainer"] = {"timings": t, "train_wall_s": wall, "img_per_s": img_s,
+                             "steps_canvas_host_ms": steps,
+                             "bare_step_img_per_s": bare, "metrics": m,
+                             "launches": launches, "cocomatch_native": native,
+                             "resume_s": resume_s, "process_group": [backend, world[0]]}
+        return launches
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checks-only", action="store_true",
@@ -984,6 +1166,7 @@ def main() -> int:
         if not args.checks_only:
             paths["serving"] = phase_serving(torch, report)
             paths["training"] = phase_training(torch, report)
+            paths["trainer"] = phase_trainer(torch, report)
         for row in rows:  # each path's launches, from its own zeroed counters
             by_path = {p: c[row["name"]] for p, c in paths.items() if c.get(row["name"])}
             row["launches"] = sum(by_path.values()) if paths else None

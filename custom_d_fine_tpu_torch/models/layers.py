@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import dist
+
 BN_EPS = 1e-5
 LN_EPS = 1e-6  # flax nn.LayerNorm's default, which the JAX package uses (torch's is 1e-5)
 
@@ -48,7 +50,11 @@ class BatchNorm(nn.BatchNorm2d):
     nn.BatchNorm2d takes the unbiased one (N/(N-1) larger, N values per
     channel). Flax momentum 0.9 is torch momentum 0.1. The batch itself is
     normalised with the biased variance in both. `frozen` (the backbone's
-    freeze_norm) keeps the running statistics in train mode too."""
+    freeze_norm) keeps the running statistics in train mode too.
+
+    Under a torch.distributed group of more than one process, train mode
+    normalises with the statistics of the global batch, as the JAX package's
+    sharded step does (parallel/dist.py): see `synced_batch_norm`."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS)
@@ -58,6 +64,8 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training or self.frozen:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if dist.world()[0] > 1:
+            return synced_batch_norm(self, x)
         m = self.momentum
         rv = self.running_var.clone()  # autograd keeps this one; the buffer stays free
         y = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias, True, m, self.eps)
@@ -67,6 +75,35 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.copy_((rv - kept) * ((n - 1) / n) + kept)
             self.num_batches_tracked.add_(1)
         return y
+
+
+def synced_batch_norm(bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode BatchNorm over the global batch of the process group: one
+    all_reduce of the per-channel count, sum and sum of squares (in f32, or
+    f64 for an f64 input, through torch.distributed.nn's all_reduce, which
+    carries the gradient back to every process), then the biased variance
+    E[x^2] - E[x]^2. The running statistics take flax's rule with the global
+    mean and biased variance, and are equal on every process.
+    nn.SyncBatchNorm is not used: it rejects CPU tensors, and the gloo tests
+    run on the CPU."""
+    from torch.distributed.nn.functional import all_reduce
+
+    C = x.shape[1]
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    n = torch.full((1,), float(x.numel() // C), dtype=xf.dtype, device=x.device)
+    stats = all_reduce(torch.cat([n, xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
+    count = stats[0]
+    mean = stats[1:1 + C] / count
+    var = (stats[1 + C:] / count - mean * mean).clamp(min=0.0)
+    scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
+    shift = bn.bias.float() - mean * scale
+    y = (xf * scale[None, :, None, None] + shift[None, :, None, None]).to(x.dtype)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach().to(bn.running_mean.dtype), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach().to(bn.running_var.dtype), alpha=m)
+        bn.num_batches_tracked.add_(1)
+    return y
 
 
 class LearnableAffineBlock(nn.Module):

@@ -12,6 +12,12 @@ targets are computed once per index set and reused across layers (the
 reference points are the layer-0 pre boxes for every layer); num_pos_neg of
 the final layer's DDF carries to the aux and dn layers, as in JAX. The mask
 losses come with the mask head.
+
+Every normaliser (num_boxes, the GO and denoising counts, the DDF counts) is
+the count of the global batch: under torch.distributed it is summed over the
+processes (parallel/dist.py:global_sum), as the JAX package's sharded sum is
+global. Each process's losses are then its share of the global batch's, and
+the shares add up to them.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 from ..configs.registry import CriterionConfig, MatcherConfig
 from ..ops.boxes import box_cxcywh_to_xyxy, elementwise_box_iou, elementwise_generalized_box_iou
 from ..ops.fdr import bbox2distance
+from ..parallel.dist import global_sum
 from .matcher import match_all_sets
 
 Match = Dict[str, torch.Tensor]  # {"q": [B,M], "g": [B,M], "valid": [B,M]}
@@ -126,9 +133,32 @@ def _ce_int(pred_logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.gather(F.log_softmax(pred_logits, dim=-1), -1, labels[..., None])[..., 0]
 
 
+def _ddf_masks(match: Match, targets, Q: int):
+    """The DDF loss's positive and negative queries [B, Q] (bool) on `match`
+    and its image count: matched queries, the other queries of valid images,
+    and the valid images (padded tail-batch images are neither positive nor
+    negative)."""
+    B = match["q"].shape[0]
+    mask = _scatter_q(torch.zeros((B, Q), dtype=torch.bool, device=match["q"].device),
+                      match["q"], torch.ones_like(match["valid"]), match["valid"])
+    iv = targets.get("image_valid")
+    if iv is None:
+        return mask, ~mask, torch.tensor(float(B), device=mask.device)
+    img = iv.bool()[:, None]
+    return mask & img, ~mask & img, iv.float().sum()
+
+
+def _ddf_counts(match: Match, targets, Q: int) -> torch.Tensor:
+    """This process's [n_pos, n_neg, n_img] of the DDF loss on `match`, each
+    query counted once per box side as the loss is."""
+    pos, neg, n_img = _ddf_masks(match, targets, Q)
+    return torch.stack([4 * pos.sum().float(), 4 * neg.sum().float(), n_img])
+
+
 def loss_local(outputs, targets, match: Match, num_boxes, reg_max: int, fgl_targets=None,
-               num_pos_neg=None, is_dn: bool = False, T: float = 5.0):
-    """FGL + DDF (reference :145-237). Returns (losses, fgl_targets, num_pos_neg)."""
+               num_pos_neg=None, is_dn: bool = False, T: float = 5.0, counts=None):
+    """FGL + DDF (reference :145-237). Returns (losses, fgl_targets, num_pos_neg).
+    `counts`: the global batch's _ddf_counts on `match` (needed for DDF)."""
     losses: Dict[str, torch.Tensor] = {}
     if "pred_corners" not in outputs:
         return losses, fgl_targets, num_pos_neg
@@ -150,31 +180,23 @@ def loss_local(outputs, targets, match: Match, num_boxes, reg_max: int, fgl_targ
         teacher = outputs["teacher_corners"].float().reshape(B, Q, 4, K1).detach()
         wt = torch.sigmoid(outputs["teacher_logits"].float()).max(-1).values
         wt = _scatter_q(wt, match["q"], ious, match["valid"]).detach()
-        mask = _scatter_q(torch.zeros((B, Q), dtype=torch.bool, device=wt.device), match["q"],
-                          torch.ones_like(match["valid"]), match["valid"])
-        mask4 = mask[..., None].expand(B, Q, 4)
-        iv = targets.get("image_valid")
-        if iv is not None:  # padded tail-batch images are neither positive nor negative
-            img4 = iv.bool()[:, None, None].expand(B, Q, 4)
-            mask4 = mask4 & img4
-            neg4 = ~mask4 & img4
-            n_img = iv.float().sum().clamp(min=1.0)
-        else:
-            neg4 = ~mask4
-            n_img = B
+        pos, neg, _ = _ddf_masks(match, targets, Q)
+        mask4, neg4 = pos[..., None].expand(B, Q, 4), neg[..., None].expand(B, Q, 4)
+        n_pos, n_neg, n_img = counts.unbind()
+        n_img = n_img.clamp(min=1.0)
         kl = (F.softmax(teacher / T, -1) * (F.log_softmax(teacher / T, -1)
                                              - F.log_softmax(pred / T, -1))).sum(-1)
         loss_elem = wt[..., None] * (T ** 2) * kl
         if not is_dn or num_pos_neg is None:
             batch_scale = 8.0 / n_img
-            pos_neg = (torch.sqrt(mask4.sum() * batch_scale), torch.sqrt(neg4.sum() * batch_scale))
+            pos_neg = (torch.sqrt(n_pos * batch_scale), torch.sqrt(n_neg * batch_scale))
             if not is_dn:
                 num_pos_neg = pos_neg
         else:
             pos_neg = num_pos_neg
         num_pos, num_neg = pos_neg
-        l_pos = torch.where(mask4, loss_elem, 0.0).sum() / mask4.sum().clamp(min=1)
-        l_neg = torch.where(neg4, loss_elem, 0.0).sum() / neg4.sum().clamp(min=1)
+        l_pos = torch.where(mask4, loss_elem, 0.0).sum() / n_pos.clamp(min=1.0)
+        l_neg = torch.where(neg4, loss_elem, 0.0).sum() / n_neg.clamp(min=1.0)
         losses["loss_ddf"] = (l_pos * num_pos + l_neg * num_neg) / (num_pos + num_neg + 1e-12)
     return losses, fgl_targets, num_pos_neg
 
@@ -207,7 +229,8 @@ class DFINECriterion:
     def _terms(self, out, targets, match, match_go, n, n_go, suffix, add, local=None):
         """Add the cfg.losses terms of one output set: vfl on `match`, boxes and
         local on `match_go`. `local` is the state [fgl targets, num_pos_neg,
-        is_dn] that loss_local carries from set to set, or None to skip it.
+        is_dn, the global DDF counts] that loss_local carries from set to set,
+        or None to skip it.
         As in the JAX package, "focal" is a function of this module that the
         criterion does not dispatch."""
         cfg, nc = self.cfg, self.num_classes
@@ -217,9 +240,9 @@ class DFINECriterion:
             elif loss == "boxes":
                 add(loss_boxes(out, targets, match_go, n_go), suffix)
             elif loss == "local" and local is not None:
-                fgl, npn, is_dn = local
+                fgl, npn, is_dn, counts = local
                 ld, fgl, npn_out = loss_local(out, targets, match_go, n_go, cfg.reg_max, fgl,
-                                              npn, is_dn=is_dn)
+                                              npn, is_dn=is_dn, counts=counts)
                 add(ld, suffix)
                 local[:2] = [fgl, npn_out]
 
@@ -248,11 +271,27 @@ class DFINECriterion:
         n_aux = len(aux_sets)
         match_go = {"q": torch.arange(Q, device=dev)[None].expand(B, Q), "g": go_g,
                     "valid": go_valid}
-        num_boxes = targets["valid"].sum().float().clamp(min=1.0)
-        num_boxes_go = go_valid.sum().float().clamp(min=1.0)
+        has_dn = "dn_outputs" in outputs and outputs.get("dn_meta") is not None
+        if has_dn:
+            match_dn = self._dn_match(outputs["dn_meta"], targets)
+            dn_positive = outputs["dn_meta"]["positive"]
+            if "image_valid" in targets:
+                dn_positive = dn_positive & targets["image_valid"][:, None]
+
+        # every normaliser of the global batch, in one sum over the processes
+        # (parallel/dist.py): num_boxes, the GO count, the DDF counts on the GO
+        # matches, and with CDN the denoising count and its DDF counts
+        counts = [targets["valid"].sum().float()[None], go_valid.sum().float()[None],
+                  _ddf_counts(match_go, targets, Q)]
+        if has_dn:
+            counts += [dn_positive.sum().float()[None],
+                       _ddf_counts(match_dn, targets, dn_positive.shape[1])]
+        counts = global_sum(torch.cat(counts))
+        num_boxes, num_boxes_go = counts[:2].clamp(min=1.0).unbind()
         extra = {"up": outputs["up"], "reg_scale": outputs["reg_scale"]}
 
-        local = [None, None, False]  # fgl targets of the GO matches, num_pos_neg, is_dn
+        # fgl targets of the GO matches, num_pos_neg, is_dn, DDF counts
+        local = [None, None, False, counts[2:5]]
         self._terms(outputs, targets, to_match(assign[0]), match_go, num_boxes, num_boxes_go,
                     "", add, local)
         for i, aux in enumerate(aux_sets):
@@ -265,14 +304,9 @@ class DFINECriterion:
                         num_boxes_go, f"_enc_{i}", add)
 
         # ---- denoising (reference :727-773): static matches, own normaliser
-        if "dn_outputs" in outputs and outputs.get("dn_meta") is not None:
-            dn_meta = outputs["dn_meta"]
-            match_dn = self._dn_match(dn_meta, targets)
-            dn_positive = dn_meta["positive"]
-            if "image_valid" in targets:
-                dn_positive = dn_positive & targets["image_valid"][:, None]
-            n_dn = dn_positive.sum().float().clamp(min=1.0)
-            local_dn = [None, local[1], True]
+        if has_dn:
+            n_dn = counts[5].clamp(min=1.0)
+            local_dn = [None, local[1], True, counts[6:9]]
             for i, dn_out in enumerate(outputs["dn_outputs"]):
                 self._terms({**dn_out, **extra}, targets, match_dn, match_dn, n_dn, n_dn,
                             f"_dn_{i}", add, local_dn)

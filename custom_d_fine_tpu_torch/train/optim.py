@@ -15,7 +15,13 @@ Clipping is optax's clip_by_global_norm, g * min(1, max_norm / norm) over
 every gradient (frozen ones too); it is not clip_grad_norm_, whose +1e-6
 in the divisor differs. Accumulation is
 optax.MultiSteps': a running mean of the micro-batch gradients, one clipped
-AdamW step on the k-th, nothing on the others.
+AdamW step on the k-th, nothing on the others. use_scheduler=False keeps
+each group at its base lr (backbone_lr or base_lr), as the JAX package does.
+
+Under torch.distributed, step() first sums each micro-batch's gradients over
+the processes (parallel/dist.py): each process's loss is its share of the
+global batch's (train/criterion.py), so the sum is the global batch's
+gradient, and every process takes the same update.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from torch import nn
 
 from ..configs.registry import ModelConfig
+from ..parallel.dist import all_reduce_sum_
 
 NORM_TOKENS = ("norm", "bn", "gn")
 GROUPS = ("backbone", "backbone_norm", "encdec_norm_bias", "rest")
@@ -83,22 +90,28 @@ class Optimizer:
     def __init__(self, model: nn.Module, model_cfg: ModelConfig, *, base_lr: float,
                  backbone_lr: float, weight_decay: float = 0.000125,
                  betas: Tuple[float, float] = (0.9, 0.999), total_steps: int = 10000,
-                 pct_start: float = 0.1, clip_max_norm: float = 0.1, b_accum_steps: int = 1):
+                 pct_start: float = 0.1, use_scheduler: bool = True,
+                 clip_max_norm: float = 0.1, b_accum_steps: int = 1):
         named = list(model.named_parameters())
         labels = label_params(named, model_cfg)
         self.params: List[nn.Parameter] = [p for _, p in named]
         big = model_cfg.name in ("l", "x") or model_cfg.decoder.enable_mask_head
         peak = {"backbone": 2 * backbone_lr if big else 2 * base_lr, "rest": 2 * base_lr}
-        groups = []
+        groups, self.schedules = [], []  # the schedules stay out of the savable state
         for g in GROUPS:
-            sched = onecycle(peak["backbone" if g.startswith("backbone") else "rest"],
-                             total_steps, pct_start)
-            groups.append({"params": [p for n, p in named if labels[n] == g], "name": g,
-                           "schedule": sched, "lr": sched(0),
+            params = [p for n, p in named if labels[n] == g]
+            if not params:
+                continue
+            bb = g.startswith("backbone")
+            if use_scheduler:
+                sched = onecycle(peak["backbone" if bb else "rest"], total_steps, pct_start)
+            else:  # each group keeps its base lr
+                sched = lambda count, lr=backbone_lr if bb else base_lr: lr  # noqa: E731
+            self.schedules.append(sched)
+            groups.append({"params": params, "name": g, "lr": sched(0),
                            "weight_decay": 0.0 if g in ("backbone_norm", "encdec_norm_bias")
                            else weight_decay})
-        self.adamw = torch.optim.AdamW([g for g in groups if g["params"]], betas=betas,
-                                       eps=1e-8)
+        self.adamw = torch.optim.AdamW(groups, betas=betas, eps=1e-8)
         self.clip_max_norm = clip_max_norm
         self.k = int(b_accum_steps)
         self.count = 0       # optimizer updates so far (the schedule's step)
@@ -112,6 +125,7 @@ class Optimizer:
             if p.grad is None:  # a parameter the loss did not reach: zero gradient
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+        all_reduce_sum_(grads)  # the global batch's gradient (parallel/dist.py)
         norm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g.float()) for g in grads]))
         if self.k > 1:  # running mean of the micro-batch gradients (optax.MultiSteps)
@@ -134,8 +148,8 @@ class Optimizer:
         scale = torch.where(clip_norm < self.clip_max_norm, 1.0,
                             self.clip_max_norm / clip_norm)
         torch._foreach_mul_(grads, scale)
-        for g in self.adamw.param_groups:
-            g["lr"] = g["schedule"](self.count)
+        for g, sched in zip(self.adamw.param_groups, self.schedules):
+            g["lr"] = sched(self.count)
         self.adamw.step()
         self.count += 1
         return norm
@@ -143,3 +157,14 @@ class Optimizer:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+    def state_dict(self) -> Dict[str, object]:
+        """AdamW's state, the update count, and the accumulation's progress."""
+        return {"adamw": self.adamw.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": [a.clone() for a in self.acc]}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+        dev = self.params[0].device
+        self.acc = [a.to(dev) for a in state["acc"]]

@@ -26,6 +26,8 @@ from ..configs import ModelConfig, get_model_config
 from ..deploy.serving import resolve_device
 from ..models.denoising import dn_layout, draw_dn_noise
 from ..models.dfine import DFINE, build_model
+from ..ops.postprocess import topk_detections
+from ..parallel.dist import batch_rows
 from .criterion import DFINECriterion
 from .ema import ema_update
 from .optim import Optimizer
@@ -55,29 +57,33 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns step(state, batch, generator) -> (state, metrics).
 
-    batch = {"images": [B,H,W,3] uint8 (the wire format; /255 here) or f32 in
-    [0,1], "labels": [B,G] int, "boxes": [B,G,4] f32 cxcywh normalised,
+    batch = {"images": [B,H,W,3] uint8 (the wire format; /255 here) or
+    floating in [0,1] (the model's dtype), "labels": [B,G] int, "boxes": [B,G,4] f32 cxcywh normalised,
     "valid": [B,G] bool, optional "image_valid": [B] bool}, on the model's
     device. `generator` (a CPU torch.Generator) draws the denoising noise.
     metrics: total_loss, the pre-clip grad_norm and every loss term (0-d
     tensors on the device; nothing here waits for the card except the
-    matcher's one copy of the costs)."""
+    matcher's one copy of the costs). Under torch.distributed each process
+    passes its rows of the global batch and the same `generator` state; the
+    loss terms are then this process's shares of the global batch's
+    (train/criterion.py), and grad_norm is the global batch's."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator):
         model = state.model.train()
         images = batch["images"]
-        if images.dtype != torch.float32:  # uint8 wire path
+        if images.dtype == torch.uint8:  # the wire format
             images = images.float() / 255.0
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         targets = {k: batch[k] for k in ("labels", "boxes", "valid", "image_valid")
                    if k in batch}
         dec = model.decoder
         draws = None
-        if dec.num_denoising > 0:
+        if dec.num_denoising > 0:  # this process's rows of the global batch's draws
             _, num_dn, _ = dn_layout(dec.num_denoising, dec.dn_max_gt, dec.num_queries)
-            draws = {k: v.to(x.device) for k, v in draw_dn_noise(
-                generator, x.shape[0], num_dn, dec.num_classes).items()}
+            start, total = batch_rows(x.shape[0])
+            draws = {k: v[start:start + x.shape[0]].to(x.device) for k, v in draw_dn_noise(
+                generator, total, num_dn, dec.num_classes).items()}
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
             outputs = model(x, targets=targets, dn_draws=draws,
                             msda_value_dtype=torch.bfloat16 if bf16 else None)
@@ -95,6 +101,32 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(use_ema: bool = True, bf16: bool = False
+                   ) -> Callable[[TrainState, torch.Tensor], Dict[str, torch.Tensor]]:
+    """eval_step(state, images_u8 [B,H,W,3]) -> top-300 detections
+    {labels [B,K] int32, boxes [B,K,4] f32 xyxy pixels, scores [B,K] f32} of
+    the EMA weights (the model's own without an EMA), in eval mode, under the
+    training's autocast and MSDA value dtype. Counterpart of the JAX
+    package's make_eval_step (train_step.py:172) and the Trainer's _eval
+    closure (trainer.py:266-277); reference train.py:396-400."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, images_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        model = state.model.eval()
+        x = (images_u8.float() / 255.0).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        kw = {"msda_value_dtype": torch.bfloat16 if bf16 else None}
+        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+            if use_ema and state.ema is not None:
+                out = torch.func.functional_call(model, state.ema, (x,), kw)
+            else:
+                out = model(x, **kw)
+        return topk_detections(out["pred_logits"].float(), out["pred_boxes"].float(), 300,
+                               tuple(images_u8.shape[1:3]))
+
+    return eval_step
 
 
 def build_training(size: Union[str, ModelConfig] = "m", num_classes: int = 80,

@@ -10,6 +10,9 @@ a machine that has only the port:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
+import socket
+
 import pytest
 import torch
 
@@ -287,3 +290,84 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         msda_bwd(value, shapes, (0,), loc, attn, grad.double(), points)
     with pytest.raises(ValueError):
         msda_bwd(value, shapes, (0,), loc, attn, grad[:, :2], points)
+
+
+def test_synced_batch_norm_at_world_size_1_matches_unsynced(dev):
+    """The Trainer's data-parallel BatchNorm (models/layers.py
+    synced_batch_norm: one all_reduce of count, sum and sum of squares) in a
+    process group of world size 1 on NCCL, against BatchNorm's own train-mode
+    forward on the same input: output, input gradient and running statistics
+    at rtol=atol=1e-5 (E[x^2]-E[x]^2 rounds otherwise than the cuDNN kernel)."""
+    from custom_d_fine_tpu_torch.models.layers import BatchNorm, synced_batch_norm
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                         world_size=1, rank=0)
+    try:
+        g = torch.Generator().manual_seed(8)
+        x = (torch.randn(4, 24, 20, 20, generator=g) * 2 + 0.5).to(dev)
+        w = torch.randn(4, 24, 20, 20, generator=g).to(dev)
+        bn = BatchNorm(24).to(dev).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.rand(24, generator=g) + 0.5)
+            bn.bias.copy_(torch.randn(24, generator=g))
+        other = copy.deepcopy(bn)
+        out = []
+        for fn, mod in ((lambda m, t: m(t), bn), (synced_batch_norm, other)):
+            xr = x.clone().requires_grad_()
+            y = fn(mod, xr)
+            (y * w).sum().backward()
+            out.append((y.detach(), xr.grad, mod.running_mean, mod.running_var))
+        for a, b in zip(*out):
+            torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+        assert int(other.num_batches_tracked) == int(bn.num_batches_tracked) == 1
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_eval_step_matches_the_cpu_copy(dev, bf16):
+    """train_step.make_eval_step (the Trainer's eval: the EMA's weights,
+    top-300) on the card against the same on a CPU copy: registry size s,
+    2 images of 320x320, conv kernels x sqrt(6) so that query selection does
+    not tie, the model's own weights moved away from the EMA's. f32 (TF32
+    off): scores at atol 1e-4, labels and boxes (atol 1e-4 x 320 pixels)
+    where a score stands 1e-4 from its neighbours. bf16 autocast with a bf16
+    MSDA value map, as the Trainer evaluates: scores at atol 2e-2."""
+    from custom_d_fine_tpu_torch.configs import get_model_config
+    from custom_d_fine_tpu_torch.models.dfine import build_model
+    from custom_d_fine_tpu_torch.train.train_step import TrainState, make_eval_step
+
+    model = build_model(get_model_config("s"), num_classes=80, seed=4)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(6 ** 0.5)
+    ema = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05)
+    x = torch.randint(0, 256, (2, 320, 320, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(9))
+    want = make_eval_step()(TrainState(copy.deepcopy(model), None, ema), x)
+    dmodel = copy.deepcopy(model).to(dev)
+    got = make_eval_step(bf16=bf16)(
+        TrainState(dmodel, None, {k: v.to(dev) for k, v in ema.items()}), x.to(dev))
+    got = {k: v.cpu() for k, v in got.items()}
+    assert got["scores"].shape == (2, 300) and got["boxes"].dtype == torch.float32
+    tol = 2e-2 if bf16 else 1e-4
+    torch.testing.assert_close(got["scores"], want["scores"], rtol=0, atol=tol)
+    if not bf16:
+        for b in range(2):
+            keep = torch.ones(300, dtype=torch.bool)
+            for s in (got["scores"][b], want["scores"][b]):
+                d = (s[1:] - s[:-1]).abs() > 1e-4
+                keep[:-1] &= d
+                keep[1:] &= d
+            assert keep.sum() >= 5
+            assert torch.equal(got["labels"][b][keep], want["labels"][b][keep])
+            torch.testing.assert_close(got["boxes"][b][keep], want["boxes"][b][keep],
+                                       rtol=0, atol=1e-4 * 320)
+

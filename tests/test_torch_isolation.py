@@ -1,7 +1,7 @@
 """custom_d_fine_tpu_torch stands alone: every module imports in a process
 where jax and flax cannot be imported, and no custom_d_fine_tpu module gets
 loaded; chip_smoke.py imports neither. Entry points (build_serving,
-build_training) default to the card."""
+build_training, the Trainer and its CLI) default to the card."""
 
 import ast
 import pathlib
@@ -33,7 +33,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 15  # modules of the port
+    assert int(r.stdout.strip().splitlines()[-1]) >= 40  # modules of the port
 
 
 def test_no_source_names_jax_or_the_jax_package():
@@ -72,3 +72,22 @@ def test_build_training_defaults_to_the_card():
         build_training()
     with pytest.raises(ValueError, match="bf16"):  # the CPU copy is the f32 reference
         build_training(device="cpu")
+
+
+def test_trainer_defaults_to_the_card(tmp_path):
+    """The Trainer takes train.device (cuda unless a run asks for cpu), and
+    refuses bfloat16 on the CPU; the CLI passes the config through."""
+    from custom_d_fine_tpu_torch.cli.train import main
+    from custom_d_fine_tpu_torch.train.trainer import Trainer
+    from custom_d_fine_tpu_torch.utils.config import load_config
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    cfg = load_config(overrides=[f"train.path_to_save={tmp_path}"])
+    assert cfg["train"]["device"] == "cuda" and cfg["train"]["dtype"] == "bfloat16"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    with pytest.raises(ValueError, match="bfloat16"):
+        Trainer(load_config(overrides=[f"train.path_to_save={tmp_path}", "train.device=cpu"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([f"train.path_to_save={tmp_path}"])

@@ -38,6 +38,7 @@ from custom_d_fine_tpu_torch.utils.weights import flax_to_torch
 
 from helpers import tiny_config
 from test_torch_train_step import port_config
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 NC = 4
 LR = dict(base_lr=2.5e-4, backbone_lr=6e-5, total_steps=100)
@@ -65,14 +66,15 @@ def tiny_shapes():
 
 def test_optimizer_groups_match_label_params(tiny_shapes):
     """Each flax leaf is filled with the code of its JAX label and carried to
-    the port's names by flax_to_torch: the tiny config, D-FINE-m, and
-    D-FINE-m with freeze_at=1 (the "frozen" label)."""
+    the port's names by flax_to_torch: the tiny config, D-FINE-m, D-FINE-m
+    with freeze_at=1 (the "frozen" label), and l and x (freeze_at=0)."""
     codes = ("backbone", "backbone_norm", "encdec_norm_bias", "rest", "frozen")
     m_shapes = _variable_shapes(jget("m"), 128)["params"]
     frozen = dict(freeze_at=1, freeze_stem_only=False)
     cases = [(tiny_config(), tiny_shapes["params"]), (jget("m"), m_shapes),
              (dataclasses.replace(jget("m"), backbone=dataclasses.replace(
                  jget("m").backbone, **frozen)), m_shapes)]
+    cases += [(jget(size), _variable_shapes(jget(size), 128)["params"]) for size in ("l", "x")]
     for jcfg, shapes in cases:
         tcfg = port_config(jcfg)
         coded = jax.tree_util.tree_map(
@@ -95,22 +97,34 @@ def test_onecycle_matches_optax(total, pct):
                                    err_msg=(total, c))
 
 
-@pytest.mark.parametrize("b_accum_steps,freeze_at", [(1, -1), (2, 0)])
-def test_optimizer_matches_optax(tiny_shapes, b_accum_steps, freeze_at):
+@pytest.mark.parametrize("b_accum_steps,freeze_at,name,use_scheduler",
+                         [pytest.param(1, -1, "tiny", True, id="1--1"),
+                          pytest.param(2, 0, "tiny", True, id="2-0"),
+                          pytest.param(1, 0, "l", True, id="1-0-l"),
+                          pytest.param(2, 0, "x", True, id="2-0-x"),
+                          pytest.param(1, -1, "tiny", False, id="1--1-constant-lr")])
+def test_optimizer_matches_optax(tiny_shapes, b_accum_steps, freeze_at, name, use_scheduler):
     """build_optimizer's transformation and the port's Optimizer on the same
     params and gradients for 4 micro-steps. The gradients' global norms
     (5, 0.05, 2, 0.08) switch the clipping on and off; with b_accum_steps=2
-    the clipping sees the mean of two micro-batches."""
+    the clipping sees the mean of two micro-batches. Named "l" or "x", the
+    tiny model takes the peak-lr rule of those sizes: the backbone groups
+    cycle around 2 x backbone_lr instead of 2 x base_lr. use_scheduler=False
+    keeps each group at its base lr (12.5x the warm-up's first lr): there
+    the two sides' roundings of a parameter (torch's decoupled weight-decay
+    multiply, optax's added term) add up step by step, and the tolerance's
+    2 f32 ulps become 2 a step so far."""
     cfg = tiny_config()
-    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone,
-                                                                freeze_at=freeze_at))
+    cfg = dataclasses.replace(cfg, name=name, backbone=dataclasses.replace(
+        cfg.backbone, freeze_at=freeze_at))
     tcfg = port_config(cfg)
     model = tbuild(tcfg, NC, seed=0)
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), tiny_shapes)
     params, _, rep = convert_torch_state({k: v.numpy() for k, v in model.state_dict().items()},
                                          zeros["params"], zeros["batch_stats"], strict=True)
     assert not rep["missed"]
-    tx = build_optimizer(params, cfg, b_accum_steps=b_accum_steps, **LR)
+    tx = build_optimizer(params, cfg, b_accum_steps=b_accum_steps, use_scheduler=use_scheduler,
+                         **LR)
     opt_state = jax.jit(tx.init)(params)
 
     @jax.jit
@@ -118,7 +132,8 @@ def test_optimizer_matches_optax(tiny_shapes, b_accum_steps, freeze_at):
         updates, opt_state = tx.update(g, opt_state, params)
         return optax.apply_updates(params, updates), opt_state
 
-    opt = Optimizer(model, tcfg, b_accum_steps=b_accum_steps, **LR)
+    opt = Optimizer(model, tcfg, b_accum_steps=b_accum_steps, use_scheduler=use_scheduler,
+                    **LR)
     named = dict(model.named_parameters())
     sched = jonecycle(2 * LR["base_lr"], LR["total_steps"], 0.1)
     rng = np.random.default_rng(0)
@@ -131,10 +146,11 @@ def test_optimizer_matches_optax(tiny_shapes, b_accum_steps, freeze_at):
             named[k].grad = v.clone()
         got_norm = opt.step()
         np.testing.assert_allclose(float(got_norm), _norm(g), rtol=1e-5)
-        lr = float(sched(i // b_accum_steps))
+        lr = float(sched(i // b_accum_steps)) if use_scheduler else LR["base_lr"]
+        ulps = 2 if use_scheduler else 2 * (i + 1)
         for k, w in flax_to_torch(params, {}).items():
             p = named[k].detach()
-            tol = 1e-3 * lr + 2 * np.spacing(np.abs(w.numpy()))
+            tol = 1e-3 * lr + ulps * np.spacing(np.abs(w.numpy()))
             assert (np.abs(p.numpy() - w.numpy()) <= tol).all(), (i, k)
 
 

@@ -1,7 +1,7 @@
 """The port's weight bridge (custom_d_fine_tpu_torch/utils/weights.py) is the
 inverse of the JAX package's checkpoint map: the port's state_dict ->
 convert_torch_state -> flax_to_torch is the identity, with no unmatched,
-missed or mismatched keys, on the n, s and m key sets."""
+missed or mismatched keys, on the key sets of every registry size."""
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +15,8 @@ from custom_d_fine_tpu.utils.torch_convert import convert_torch_state
 from custom_d_fine_tpu_torch.configs import get_model_config
 from custom_d_fine_tpu_torch.models.dfine import build_model
 from custom_d_fine_tpu_torch.utils.weights import flax_to_torch
+
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 
 def _flax_shapes(size: str, img: int = 320):
@@ -31,7 +33,7 @@ def _flax_shapes(size: str, img: int = 320):
                                              targets=targets, train=True))
 
 
-@pytest.mark.parametrize("size", ["n", "s", "m"])
+@pytest.mark.parametrize("size", ["n", "s", "m", "l", "x"])
 def test_state_dict_roundtrip_identity(size):
     model = build_model(get_model_config(size), num_classes=80, seed=3)
     # non-default BN statistics, so that running stats are really carried
