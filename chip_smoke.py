@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's D-FINE-m serving, training and Trainer paths on one NVIDIA GPU.
+"""Drive the PyTorch port's D-FINE-m serving, training, Trainer and deploy paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --checks-only   # build + kernel checks only
@@ -45,6 +45,18 @@ without printing its final line:
      EMA and AdamW state exactly. Prints the epoch's wall time, the img/s
      inside the Trainer beside phase 5's, the share of the epoch spent
      waiting on the loader, the eval's wall time and which mAP matcher ran.
+  7. deploy: the inference runtime (infer/model.py:TorchModel) loads phase
+     6's model.pt in float32, bfloat16 and int8, NMS on, and answers phase
+     6's val JPEGs and a 1280x720 frame with keep_ratio off and on; every
+     launch counter set to 0 just before and read just after (1 fast stem
+     and 4 MSDA launches per request); checks each detection dict against
+     the original frame; times each dtype's requests split into preprocess,
+     forward and postprocess; profiles one f32 request; holds the f32 and
+     int8 runtimes against CPU copies; exports the f32 serving graph with
+     torch.export, loads it here and in a fresh process that imports only
+     the port, and counts its kernel launches (1 stem, 4 MSDA a call);
+     times it beside the live forward; runs the bench, quantize_int8 and
+     infer CLIs on phase 6's set.
 Each profile also gives the device time per launch of each of the port's
 own kernels on that path, wherever it ranks.
 Prints a {"kernels": [...]} line, the card's line, and last
@@ -60,9 +72,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -109,50 +123,25 @@ def cuda_ms(fn, iters: int = 20, repeats: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_spans(fn, n: int):
-    """Run fn n times under torch.profiler; its device events (kernels,
-    copies, fills) as (name, start_ns, duration_ns). User annotations
-    (record_function ranges that the profiler mirrors on the device's
-    timeline, such as the optimizer's step) are not device work and are left
-    out."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0
-            and not getattr(e, "is_user_annotation", lambda: False)()]
-
-
-def busy_ms(spans) -> float:
-    """Time the device was running any of `spans` (the union of intervals), ms."""
-    busy_ns, end = 0, None
-    for _, a, d in sorted(spans, key=lambda s: s[1]):
-        b = a + d
-        if end is None or a > end:
-            busy_ns += d
-            end = b
-        elif b > end:
-            busy_ns += b - end
-            end = b
-    return busy_ns / 1e6
-
-
 def time_call(fn, iters: int = 20) -> dict:
     """A call's device time (its device events, from the profiler, per call)
     and its CUDA-event time over back-to-back calls, which also counts the gaps
     while the host enqueues the next call. "ms" is the device time; the event
     time stands in for it only when the profiler records no device events."""
+    from custom_d_fine_tpu_torch.utils.profiling import busy_ms, device_spans
+
     events = cuda_ms(fn, iters=iters)
-    try:
-        spans = device_spans(fn, iters)
-    except RuntimeError as e:
-        log(f"[time] profiler failed ({e}); using CUDA-event time")
-        spans = []
+    spans = []
+    for attempt in range(3):  # a profiler run has been seen to record no device events
+        try:
+            spans = device_spans(fn, iters)
+        except RuntimeError as e:
+            log(f"[time] profiler failed ({e})")
+        if spans:
+            break
+        log(f"[time] the profiler recorded no device events (attempt {attempt + 1} of 3)")
+    if not spans:
+        log("[time] using the CUDA-event time")
     device = busy_ms(spans) / iters if spans else None
     return {"ms": device if device is not None else events, "device_ms": device,
             "cuda_events_ms": events}
@@ -178,20 +167,6 @@ def host_ms(fn, iters: int = 10, warmup: int = 3) -> dict:
     if iters >= 100:
         out["p90"] = q[17]
     return out
-
-
-def events_by_name(torch, fn, n: int = 10):
-    """The device events of one call of fn, by kernel name: ms and count per
-    call, averaged over n calls (an empty list when the profiler records
-    none)."""
-    fn()
-    torch.cuda.synchronize()
-    by_name = {}
-    for name, _, d in device_spans(fn, n):
-        t, c = by_name.get(name, (0, 0))
-        by_name[name] = (t + d, c + 1)
-    return [{"kernel": k[:120], "ms": t / 1e6 / n, "calls": c / n}
-            for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])]
 
 
 def bound(bytes_: float, flops: float, peak_ops: float = PEAK_F32):
@@ -554,6 +529,7 @@ def check_msda_bwd(torch, report):
     through atomics), 8e-3 for a bf16 dvalue (one bf16 rounding of the same
     f32 sum)."""
     from custom_d_fine_tpu_torch.ops.msda import level_start_index, msda_bwd, msda_bwd_plain
+    from custom_d_fine_tpu_torch.utils.profiling import events_by_name
 
     g = torch.Generator().manual_seed(4)
     starts = level_start_index(SHAPES)
@@ -613,7 +589,7 @@ def check_msda_bwd(torch, report):
     except RuntimeError as e:
         log(f"[msda_bwd] grid_sample backward on a bf16 value failed ({e}); library_ms null")
         t_l = {"ms": None, "cuda_events_ms": None}
-    events = events_by_name(torch, lambda: msda_bwd(v, SHAPES, starts, loc, attn, grad, POINTS))
+    events = events_by_name(lambda: msda_bwd(v, SHAPES, starts, loc, attn, grad, POINTS))
     for e in events:
         log(f"[msda_bwd]   device event {e['ms']:.4f} ms x{e['calls']:g}  {e['kernel'][:90]}")
     foreign = [e["kernel"] for e in events if "msda_bwd_" not in e["kernel"]]
@@ -806,6 +782,8 @@ def profile(torch, step, wall_ms, what, n=10):
     events), and the device's idle share against `wall_ms`, the same call
     timed without the profiler. An extra reading that does not decide the
     run: "not measured" when the profiler records no device time."""
+    from custom_d_fine_tpu_torch.utils.profiling import busy_ms, device_spans
+
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -1012,16 +990,15 @@ def write_yolo_set(root, n_train, n_val, num_classes, seed=0):
             f.write("\n".join(part) + "\n")
 
 
-def phase_trainer(torch, report, overrides=()):
+def phase_trainer(torch, report, workdir, overrides=()):
     """The port's Trainer for one epoch of D-FINE-m at full width and depth
     (bf16, EMA on, mosaic, multiscale, 4 loader threads) in a process group
     of world size 1 on NCCL, with its eval on the EMA and its checkpoints;
     then a second Trainer that loads `last`. Counts set to 0 just before
-    train() and read just after. `overrides` (k=v) go last, for a rehearsal
-    at a smaller size."""
-    import shutil
+    train() and read just after. The data goes to <workdir>/data and the run
+    (model.pt, last.pt) to <workdir>/run, where phase 7 finds them.
+    `overrides` (k=v) go last, for a rehearsal at a smaller size."""
     import socket
-    import tempfile
 
     from custom_d_fine_tpu_torch.eval import cocomatch_native
     from custom_d_fine_tpu_torch.ops.msda import msda_bwd, msda_fwd
@@ -1031,15 +1008,14 @@ def phase_trainer(torch, report, overrides=()):
     from custom_d_fine_tpu_torch.utils.config import load_config
 
     num_classes, n_train, n_val = 80, 64, 16
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
         t0 = time.perf_counter()
-        data = os.path.join(tmp, "data")
+        data = os.path.join(workdir, "data")
         write_yolo_set(data, n_train, n_val, num_classes)
         log(f"[trainer] synthetic YOLO set: {n_train} train + {n_val} val JPEGs (640x480 and "
             f"480x640, 1-12 boxes) in {time.perf_counter() - t0:.1f} s")
         cfg = load_config(overrides=[
-            "model_name=m", f"train.data_path={data}", f"train.path_to_save={tmp}/run",
+            "model_name=m", f"train.data_path={data}", f"train.path_to_save={workdir}/run",
             "train.epochs=1", "train.batch_size=16", "train.num_workers=4",
             f"train.img_size=[{IMG[0]},{IMG[1]}]", "train.dtype=bfloat16", "train.use_ema=true",
             "train.mosaic_augs.mosaic_prob=0.8", "train.mosaic_augs.no_mosaic_epochs=0",
@@ -1141,7 +1117,271 @@ def phase_trainer(torch, report, overrides=()):
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- phase 7
+# the card against a CPU copy of the runtime: top-300 scores, with the card in
+# its served modes (fast stem, bf16 MSDA value), as phase 4 holds serving
+DEPLOY_TOL = 1e-2
+
+# the artifact in a fresh process that imports only the port: argv = repo
+# root, artifact, input .npy, output .npz, device; prints its launch counts
+ARTIFACT_PROBE = r"""
+import json, sys, time
+for name in ("jax", "jaxlib", "flax"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from custom_d_fine_tpu_torch.deploy.export import load_inference_artifact
+from custom_d_fine_tpu_torch.ops.msda import msda_fwd
+from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+t0 = time.perf_counter()
+fn = load_inference_artifact(sys.argv[2])
+load_s = time.perf_counter() - t0
+x = torch.from_numpy(np.load(sys.argv[3])).to(sys.argv[5])
+with torch.inference_mode():
+    out = {k: v.cpu().numpy() for k, v in fn(x).items()}
+np.savez(sys.argv[4], **out)
+leaked = [m for m in sys.modules
+          if m == "custom_d_fine_tpu" or m.startswith("custom_d_fine_tpu.")]
+print(json.dumps({"load_s": load_s, "stem_fwd": stem_fwd.launches,
+                  "stem_fwd_fast": stem_fwd.fast_launches, "msda_fwd": msda_fwd.launches,
+                  "leaked": leaked}))
+"""
+
+
+def deploy_frames(workdir, seed=0):
+    """Phase 6's val JPEGs (640x480 and 480x640) and one 1280x720 frame."""
+    import cv2
+    import numpy as np
+
+    data = os.path.join(workdir, "data")
+    with open(os.path.join(data, "val.csv")) as f:
+        names = [n.strip() for n in f if n.strip()]
+    frames = [cv2.imread(os.path.join(data, "images", n)) for n in names]
+    rng = np.random.default_rng(seed)
+    hd = np.clip(rng.normal(110, 12, (720, 1280, 3)), 0, 255).astype(np.uint8)
+    for _ in range(8):
+        x, y = int(rng.integers(0, 1100)), int(rng.integers(0, 560))
+        h, w = int(rng.integers(40, 160)), int(rng.integers(40, 180))
+        hd[y:y + h, x:x + w] = rng.integers(0, 256, 3)
+    return frames + [hd], names
+
+
+def detections_in_frame(det, shape, num_classes):
+    import numpy as np
+
+    h, w = shape[:2]
+    b, l, s = det["boxes"], det["labels"], det["scores"]
+    assert b.shape == (len(s), 4) and l.shape == s.shape, {k: v.shape for k, v in det.items()}
+    assert np.isfinite(b).all() and np.isfinite(s).all(), "non-finite detections"
+    assert ((s >= 0) & (s <= 1)).all(), "scores outside [0, 1]"
+    assert ((l >= 0) & (l < num_classes)).all(), "labels out of range"
+    assert (b >= 0).all() and (b[:, [0, 2]] <= w).all() and (b[:, [1, 3]] <= h).all(), \
+        "boxes outside the original frame"
+
+
+def percentiles(xs):
+    q = statistics.quantiles(xs, n=10)
+    return {"n": len(xs), "p50": statistics.median(xs), "p90": q[8]}
+
+
+def phase_deploy(torch, report, workdir, card, device="cuda", model_name="m", img=IMG,
+                 num_classes=80):
+    """The inference runtime, the exported artifact and the serving CLIs on
+    the model.pt that phase 6's Trainer wrote (D-FINE-m, 640^2), at
+    PyTorch's default precision. Returns the launch counts of the runtime's
+    requests ("deploy") and of the loaded artifact's calls ("artifact")."""
+    import shutil
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import yaml
+
+    from custom_d_fine_tpu_torch.cli import bench, infer, quantize_int8
+    from custom_d_fine_tpu_torch.deploy.export import (check_same_detections,
+                                                       export_inference_artifact,
+                                                       load_inference_artifact)
+    from custom_d_fine_tpu_torch.infer.model import DTYPES, TorchModel
+    from custom_d_fine_tpu_torch.ops.msda import msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+    from custom_d_fine_tpu_torch.utils.config import load_config
+
+    # what a caller of the runtime gets from PyTorch: cuDNN convolutions in
+    # TF32, matrix products in full f32 (phase 5's CPU comparison left TF32 off)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model_pt = os.path.join(workdir, "run", "model.pt")
+    frames, names = deploy_frames(workdir)
+    out = report.setdefault("deploy", {"card": card, "tf32": "cuDNN on, matmul off"})
+    t0 = time.perf_counter()
+    runtimes = {}
+    for dtype in DTYPES:  # each constructor runs its smoke prediction
+        runtimes[dtype] = TorchModel(model_pt, model_name, num_classes, img_size=img,
+                                     conf_thresh=0.0, enable_nms=True, dtype=dtype,
+                                     device=device)
+    log(f"[deploy] TorchModel('{model_name}', {img[0]}x{img[1]}) from the Trainer's model.pt in "
+        f"float32, bfloat16 and int8 (NMS on) in {time.perf_counter() - t0:.1f} s")
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = stem_fwd.fast_launches = msda_fwd.launches = 0
+    n_calls, n_dets = 0, {}
+    for dtype, rt in runtimes.items():
+        for keep_ratio in (False, True):
+            rt.keep_ratio = keep_ratio
+            for im in frames:
+                det = rt(im)[0]
+                detections_in_frame(det, im.shape, num_classes)
+                n_calls += 1
+                n_dets.setdefault(dtype, []).append(len(det["scores"]))
+    torch.cuda.synchronize()
+    deploy = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches}
+    n_layers = runtimes["float32"].model.cfg.decoder.num_layers
+    want = {"stem_fwd": n_calls, "msda_fwd": n_layers * n_calls}
+    log(f"[deploy] {n_calls} requests ({len(frames)} frames x keep_ratio off/on x 3 dtypes): "
+        f"launches {deploy}, {stem_fwd.fast_launches} of the stem in its fast mode (expected "
+        f"{want}); detections after NMS per request: " + ", ".join(
+            f"{k} {min(v)}-{max(v)}" for k, v in n_dets.items()))
+    if deploy != want or stem_fwd.fast_launches != n_calls:
+        raise AssertionError(f"expected launches {want}, all stems fast; got {deploy}, "
+                             f"{stem_fwd.fast_launches} fast")
+    out["launches"] = dict(deploy, stem_fwd_fast=stem_fwd.fast_launches, requests=n_calls)
+
+    # ---- host ms per request at bs1, split as the runtime records it
+    timing = {}
+    for dtype, rt in runtimes.items():
+        rt.keep_ratio = False
+        parts = {k: [] for k in ("total_ms", "preprocess_ms", "forward_ms", "postprocess_ms")}
+        for i in range(60):
+            t1 = time.perf_counter()
+            rt(frames[i % len(frames)])
+            parts["total_ms"].append((time.perf_counter() - t1) * 1e3)
+            for k, v in rt.timings.items():
+                parts[k].append(v)
+        timing[dtype] = {k: percentiles(v[10:]) for k, v in parts.items()}  # 10 warm-up
+        t = timing[dtype]
+        log(f"[deploy] {dtype} TorchModel.__call__ bs1, host ms p50/p90: total "
+            f"{t['total_ms']['p50']:.3f}/{t['total_ms']['p90']:.3f} = preprocess "
+            f"{t['preprocess_ms']['p50']:.3f}/{t['preprocess_ms']['p90']:.3f} + forward "
+            f"{t['forward_ms']['p50']:.3f}/{t['forward_ms']['p90']:.3f} + postprocess (NMS) "
+            f"{t['postprocess_ms']['p50']:.3f}/{t['postprocess_ms']['p90']:.3f} (n=50; {card})")
+    out["request_ms"] = timing
+    rt32 = runtimes["float32"]
+    out["profile_f32_request"] = profile(torch, lambda: rt32(frames[0]),
+                                         timing["float32"]["total_ms"]["p50"],
+                                         "deploy float32 request")
+
+    # ---- the card against a CPU copy of the same runtime, one frame
+    canvas = torch.from_numpy(rt32._prepare(frames[0])[0][None])
+    cpu_cmp = {}
+    for dtype in ("float32", "int8"):
+        cpu = TorchModel(model_pt, model_name, num_classes, img_size=img, dtype=dtype,
+                         device="cpu", smoke_test=False)
+        want_s = cpu.infer(canvas)["scores"]
+        got_s = runtimes[dtype].infer(canvas.to(device))["scores"].cpu()
+        err = (got_s - want_s).abs().max().item()
+        cpu_cmp[dtype] = err
+        log(f"[deploy] {dtype} runtime, card (fast stem, bf16 MSDA value) vs its CPU copy: "
+            f"top-300 scores max_abs_err={err:.3e} ({DEPLOY_TOL:g})")
+        if err > DEPLOY_TOL:
+            raise AssertionError(f"{dtype} runtime on the card differs from its CPU copy: {err}")
+    out["cpu_compare_scores_max_abs_err"] = cpu_cmp
+
+    # ---- the exported artifact: f32, bs1
+    art_dir = tempfile.mkdtemp(prefix="artifact_", dir=workdir)
+    t0 = time.perf_counter()
+    path = export_inference_artifact(rt32.model, img, os.path.join(art_dir, "model_float32.pt2"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = load_inference_artifact(path)
+    load_s = time.perf_counter() - t0
+    x = canvas.to(device)
+    with torch.inference_mode():
+        live = {k: v.cpu().numpy() for k, v in rt32.infer(x).items()}
+        stem_fwd.launches = stem_fwd.fast_launches = msda_fwd.launches = 0
+        n_art = 3
+        for _ in range(n_art):
+            got = art(x)
+        torch.cuda.synchronize()
+    artifact = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches}
+    want = {"stem_fwd": n_art, "msda_fwd": n_layers * n_art}
+    log(f"[artifact] {path}: {os.path.getsize(path) / 1e6:.1f} MB, exported in {export_s:.1f} s, "
+        f"loaded in {load_s:.2f} s; {n_art} calls: launches {artifact}, "
+        f"{stem_fwd.fast_launches} fast (expected {want})")
+    if artifact != want or stem_fwd.fast_launches != n_art:
+        raise AssertionError(f"the artifact did not launch the kernels: {artifact}")
+    frac = check_same_detections({k: v.cpu().numpy() for k, v in got.items()}, live)
+    np.save(os.path.join(art_dir, "x.npy"), canvas.numpy())
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", ARTIFACT_PROBE, ROOT, path,
+                        os.path.join(art_dir, "x.npy"), os.path.join(art_dir, "out.npz"), device],
+                       capture_output=True, text=True, timeout=600)
+    fresh_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"the artifact failed in a fresh process:\n{r.stderr[-4000:]}")
+    fresh = json.loads(r.stdout.strip().splitlines()[-1])
+    frac_fresh = check_same_detections(dict(np.load(os.path.join(art_dir, "out.npz"))), live)
+    log(f"[artifact] fresh process (imports only the port): loaded in {fresh['load_s']:.2f} s, "
+        f"{fresh_s:.1f} s in all; 1 call: launches stem {fresh['stem_fwd']} (fast "
+        f"{fresh['stem_fwd_fast']}), msda {fresh['msda_fwd']}; unmatched top-50 against the "
+        f"live runtime {frac_fresh:.2f} (in this process {frac:.2f}; <= 0.05)")
+    if (fresh["stem_fwd"], fresh["stem_fwd_fast"], fresh["msda_fwd"]) != (1, 1, n_layers) \
+            or fresh["leaked"]:
+        raise AssertionError(f"the artifact in a fresh process: {fresh}")
+    # the artifact's time beside the live forward's, alternating, in this call
+    tm = {"live": [], "artifact": []}
+    with torch.inference_mode():
+        for name in ("live", "artifact", "artifact", "live"):
+            fn = rt32.infer if name == "live" else art
+            tm[name].append(host_ms(lambda: fn(x), iters=30)["median"])
+    log(f"[artifact] bs1 forward host ms (median of 30, ending in a synchronise), live "
+        f"{tm['live'][0]:.3f}/{tm['live'][1]:.3f} vs artifact {tm['artifact'][0]:.3f}/"
+        f"{tm['artifact'][1]:.3f} ({card})")
+    out["artifact"] = {"bytes": os.path.getsize(path), "export_s": export_s, "load_s": load_s,
+                       "fresh_process": dict(fresh, wall_s=fresh_s),
+                       "unmatched_share": [frac, frac_fresh], "forward_ms": tm,
+                       "launches": artifact}
+    shutil.rmtree(art_dir, ignore_errors=True)
+
+    # ---- the CLIs on phase 6's set, through a config file as a user runs them
+    cfg = load_config(overrides=[
+        f"model_name={model_name}", f"train.data_path={workdir}/data",
+        f"train.path_to_save={workdir}/cli", f"train.root={workdir}/cli_root",
+        f"train.img_size=[{img[0]},{img[1]}]", f"train.device={device}",
+        f"train.path_to_test_data={workdir}/infer_src", f"train.infer_path={workdir}/infer_out",
+        "train.conf_thresh=0.05", "train.batch_size=16", "train.num_workers=4"])
+    cfg = json.loads(json.dumps(cfg))
+    cfg["train"]["label_to_name"] = {i: f"class_{i}" for i in range(num_classes)}
+    cfg_path = os.path.join(workdir, "deploy.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    cli = ["--config", cfg_path, "--weights", model_pt]
+    t0 = time.perf_counter()
+    bench.main(cli)
+    with open(os.path.join(workdir, "cli", "bench.csv")) as f:
+        rows = list(__import__("csv").DictReader(f))
+    log(f"[cli] bench on {len(names)} val JPEGs in {time.perf_counter() - t0:.1f} s: " + "; ".join(
+        f"{r['backend']} f1 {float(r['f1']):.4f}, p50 {float(r['latency_ms_p50']):.3f} ms, mean "
+        f"{float(r['latency_ms_mean']):.3f} ms" for r in rows) + f" ({card})")
+    if [r["backend"] for r in rows] != [f"torch_{d}" for d in DTYPES]:
+        raise AssertionError(f"bench rows {[r['backend'] for r in rows]}")
+    t0 = time.perf_counter()
+    q = quantize_int8.main(cli)
+    log(f"[cli] quantize_int8 in {time.perf_counter() - t0:.1f} s: " + json.dumps(
+        {k: v for k, v in q.items() if k != "reverted"}))
+    os.makedirs(os.path.join(workdir, "infer_src"))
+    for n in names[:2]:
+        shutil.copy(os.path.join(workdir, "data", "images", n), os.path.join(workdir, "infer_src"))
+    t0 = time.perf_counter()
+    infer.main(cli)
+    written = sorted(os.listdir(os.path.join(workdir, "infer_out", "labels")))
+    log(f"[cli] infer on a 2-image folder in {time.perf_counter() - t0:.1f} s: label files "
+        f"{written}")
+    if written != sorted(n.rsplit(".", 1)[0] + ".txt" for n in names[:2]):
+        raise AssertionError(f"infer wrote {written}")
+    out["cli"] = {"bench": rows, "quantize_int8": q, "infer_labels": written}
+    return {"deploy": deploy, "artifact": artifact}
 
 
 def main() -> int:
@@ -1166,9 +1406,14 @@ def main() -> int:
         if not args.checks_only:
             paths["serving"] = phase_serving(torch, report)
             paths["training"] = phase_training(torch, report)
-            paths["trainer"] = phase_trainer(torch, report)
+            workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+            try:
+                paths["trainer"] = phase_trainer(torch, report, workdir)
+                paths.update(phase_deploy(torch, report, workdir, card))
+            finally:
+                shutil.rmtree(workdir, ignore_errors=True)
         for row in rows:  # each path's launches, from its own zeroed counters
-            by_path = {p: c[row["name"]] for p, c in paths.items() if c.get(row["name"])}
+            by_path = {p: c.get(row["name"], 0) for p, c in paths.items()}
             row["launches"] = sum(by_path.values()) if paths else None
             row["launches_by_path"] = by_path
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run

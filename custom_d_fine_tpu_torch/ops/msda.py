@@ -1,5 +1,6 @@
-"""MSDA kernel wrappers (csrc/msda.cu forward, csrc/msda_bwd.cu backward),
-their plain PyTorch versions, and the autograd Function that joins them.
+"""MSDA kernel wrappers (csrc/msda.cu forward, csrc/msda_bwd.cu backward) as
+custom ops, their plain PyTorch versions, and the autograd rule that joins
+them.
 
 The forward replaces the TPU kernels
 custom_d_fine_tpu/ops/pallas/msda_sep.py:_sep_kernel, ops/pallas/msda.py:_level_kernel
@@ -33,14 +34,17 @@ gathered per CTA into an f32 slab in shared memory (a rectangle of one
 (b, head, level) map) and stored once in value's dtype, so the call needs
 no f32 buffer, no zero-fill, no cast and no global atomic.
 
-`msda_fwd` and `msda_bwd` take the plain version only for tensors on the
-CPU. For a CUDA tensor they launch the kernel or raise.
+`msda_fwd` and `msda_bwd` call the custom ops `dfine_port::msda_fwd` and
+`dfine_port::msda_bwd`, whose CPU implementations are the plain versions and
+whose CUDA implementations launch the kernel or raise. Both ops have fake
+(shape-only) implementations, so the serving graph exports with torch.export
+and the artifact keeps the kernel; msda_fwd's autograd rule calls msda_bwd.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -102,15 +106,51 @@ def _level_args(spatial_shapes, level_start, num_points_list, value, fn):
 def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
              level_start: Sequence[int], loc: torch.Tensor, attn: torch.Tensor,
              num_points_list: Sequence[int]) -> torch.Tensor:
-    """Same signature and result as msda_fwd_plain; launches csrc/msda.cu for
-    CUDA tensors and counts the launch in `msda_fwd.launches`."""
-    if value.device.type == "cpu":
-        return msda_fwd_plain(value, spatial_shapes, level_start, loc, attn, num_points_list)
+    """Same signature and result as msda_fwd_plain, through the custom op
+    `dfine_port::msda_fwd`: launches csrc/msda.cu for CUDA tensors and counts
+    the launch in `msda_fwd.launches`. Differentiable: its backward is
+    msda_bwd."""
+    return torch.ops.dfine_port.msda_fwd(value, _flat(spatial_shapes), _ints(level_start),
+                                         loc, attn, _ints(num_points_list))
+
+
+msda_fwd.launches = 0
+
+
+def _flat(spatial_shapes) -> List[int]:
+    return [int(v) for hw in spatial_shapes for v in hw]
+
+
+def _ints(xs) -> List[int]:
+    return [int(x) for x in xs]
+
+
+def _pairs(flat: Sequence[int]) -> List[Tuple[int, int]]:
+    return list(zip(flat[0::2], flat[1::2]))
+
+
+# The ops take the levels as int[] (spatial shapes flattened: H0, W0, H1, ...),
+# so that torch.export can trace the serving graph through them (fake tensors
+# have no data_ptr) and the exported artifact still launches the kernel.
+@torch.library.custom_op("dfine_port::msda_fwd", mutates_args=(), device_types="cpu")
+def _msda_fwd_op(value: torch.Tensor, spatial_shapes: List[int], level_start: List[int],
+                 loc: torch.Tensor, attn: torch.Tensor, num_points: List[int]) -> torch.Tensor:
+    return msda_fwd_plain(value, _pairs(spatial_shapes), level_start, loc, attn, num_points)
+
+
+@_msda_fwd_op.register_fake
+def _msda_fwd_fake(value, spatial_shapes, level_start, loc, attn, num_points):
+    B, _, nh, c = value.shape
+    return value.new_empty((B, loc.shape[1], nh * c), dtype=torch.float32)
+
+
+@_msda_fwd_op.register_kernel("cuda")
+def _msda_fwd_cuda(value, spatial_shapes, level_start, loc, attn, num_points):
     from ._ext import load
 
     B, Lv, nh, c = value.shape
     Lq = loc.shape[1]
-    P, info, n_levels = _level_args(spatial_shapes, level_start, num_points_list, value,
+    P, info, n_levels = _level_args(_pairs(spatial_shapes), level_start, num_points, value,
                                     "msda_fwd")
     _check(value, "value", (torch.float32, torch.bfloat16), (B, Lv, nh, c))
     _check(loc, "loc", (torch.float32,), (B, Lq, nh, P, 2))
@@ -132,9 +172,6 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
         raise RuntimeError(f"msda_fwd: kernel launch failed with CUDA error {err}")
     msda_fwd.launches += 1
     return out
-
-
-msda_fwd.launches = 0
 
 
 def msda_bwd_plain(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -195,19 +232,39 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
              level_start: Sequence[int], loc: torch.Tensor, attn: torch.Tensor,
              grad_out: torch.Tensor, num_points_list: Sequence[int]
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Same signature and result as msda_bwd_plain; launches csrc/msda_bwd.cu
-    for CUDA tensors and counts the launch in `msda_bwd.launches`. The kernel
-    writes every element of dvalue, in value's dtype, into memory from
-    torch.empty; it sums with shared-memory f32 atomics, so dvalue's last
-    bits vary from run to run."""
-    if value.device.type == "cpu":
-        return msda_bwd_plain(value, spatial_shapes, level_start, loc, attn, grad_out,
-                              num_points_list)
+    """Same signature and result as msda_bwd_plain, through the custom op
+    `dfine_port::msda_bwd`: launches csrc/msda_bwd.cu for CUDA tensors and
+    counts the launch in `msda_bwd.launches`. The kernel writes every element
+    of dvalue, in value's dtype, into memory from torch.empty; it sums with
+    shared-memory f32 atomics, so dvalue's last bits vary from run to run."""
+    return torch.ops.dfine_port.msda_bwd(value, _flat(spatial_shapes), _ints(level_start),
+                                         loc, attn, grad_out, _ints(num_points_list))
+
+
+msda_bwd.launches = 0
+
+
+@torch.library.custom_op("dfine_port::msda_bwd", mutates_args=(), device_types="cpu")
+def _msda_bwd_op(value: torch.Tensor, spatial_shapes: List[int], level_start: List[int],
+                 loc: torch.Tensor, attn: torch.Tensor, grad_out: torch.Tensor,
+                 num_points: List[int]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return msda_bwd_plain(value, _pairs(spatial_shapes), level_start, loc, attn, grad_out,
+                          num_points)
+
+
+@_msda_bwd_op.register_fake
+def _msda_bwd_fake(value, spatial_shapes, level_start, loc, attn, grad_out, num_points):
+    return (torch.empty_like(value), loc.new_empty(loc.shape, dtype=torch.float32),
+            attn.new_empty(attn.shape, dtype=torch.float32))
+
+
+@_msda_bwd_op.register_kernel("cuda")
+def _msda_bwd_cuda(value, spatial_shapes, level_start, loc, attn, grad_out, num_points):
     from ._ext import load
 
     B, Lv, nh, c = value.shape
     Lq = loc.shape[1]
-    P, info, n_levels = _level_args(spatial_shapes, level_start, num_points_list, value,
+    P, info, n_levels = _level_args(_pairs(spatial_shapes), level_start, num_points, value,
                                     "msda_bwd")
     _check(value, "value", (torch.float32, torch.bfloat16), (B, Lv, nh, c), "msda_bwd")
     _check(loc, "loc", (torch.float32,), (B, Lq, nh, P, 2), "msda_bwd")
@@ -233,26 +290,22 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
     return dvalue, dloc, dattn
 
 
-msda_bwd.launches = 0
+def _msda_setup_context(ctx, inputs, output):
+    value, spatial_shapes, level_start, loc, attn, num_points = inputs
+    ctx.levels = (spatial_shapes, level_start, num_points)
+    ctx.save_for_backward(value, loc, attn)
 
 
-class MSDAFunction(torch.autograd.Function):
-    """out = msda_fwd(value, loc, attn); its backward is msda_bwd. Takes value
-    f32 or bf16 and loc/attn f32, contiguous (see `msda`, which casts)."""
+def _msda_backward(ctx, grad_out):
+    value, loc, attn = ctx.saved_tensors
+    spatial_shapes, level_start, num_points = ctx.levels
+    dvalue, dloc, dattn = torch.ops.dfine_port.msda_bwd(
+        value, spatial_shapes, level_start, loc, attn, grad_out.float().contiguous(),
+        num_points)
+    return dvalue, None, None, dloc, dattn, None
 
-    @staticmethod
-    def forward(ctx, value, loc, attn, spatial_shapes, level_start, num_points_list):
-        ctx.levels = (spatial_shapes, level_start, num_points_list)
-        ctx.save_for_backward(value, loc, attn)
-        return msda_fwd(value, spatial_shapes, level_start, loc, attn, num_points_list)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, loc, attn = ctx.saved_tensors
-        spatial_shapes, level_start, num_points_list = ctx.levels
-        dvalue, dloc, dattn = msda_bwd(value, spatial_shapes, level_start, loc, attn,
-                                       grad_out.float().contiguous(), num_points_list)
-        return dvalue, dloc, dattn, None, None, None
+_msda_fwd_op.register_autograd(_msda_backward, setup_context=_msda_setup_context)
 
 
 def msda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]], loc: torch.Tensor,
@@ -264,6 +317,5 @@ def msda(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]], loc: to
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if value.dtype not in (torch.float32, torch.bfloat16):
         value = value.float()
-    return MSDAFunction.apply(value.contiguous(), loc.float().contiguous(),
-                              attn.float().contiguous(), spatial_shapes,
-                              level_start_index(spatial_shapes), tuple(num_points_list))
+    return msda_fwd(value.contiguous(), spatial_shapes, level_start_index(spatial_shapes),
+                    loc.float().contiguous(), attn.float().contiguous(), num_points_list)

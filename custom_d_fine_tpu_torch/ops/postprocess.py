@@ -1,6 +1,7 @@
 """Postprocessing for the serving graph (PyTorch), counterpart of
 custom_d_fine_tpu/ops/postprocess.py: sigmoid -> exact flat top-K over Q*C ->
-label/query decode -> cxcywh -> absolute xyxy (reference src/dl/export.py:20-100).
+label/query decode -> cxcywh -> absolute xyxy (reference src/dl/export.py:20-100),
+and the class-wise NMS of the inference runtime.
 
 The JAX package's fast_topk is a TPU PartialReduce workaround; torch.topk is
 exact here."""
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -35,3 +37,35 @@ def topk_detections(
         H, W = out_size
         boxes = box_cxcywh_to_xyxy_scaled(boxes, W, H)
     return {"labels": labels, "boxes": boxes, "scores": top_scores}
+
+
+def classwise_nms_padded(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,
+                         iou_threshold: float = 0.6) -> torch.Tensor:
+    """Class-aware greedy NMS over a fixed-size candidate set (boxes [N, 4]
+    xyxy, scores [N], labels [N]) -> keep mask [N] bool on the input's device
+    (JAX ops/postprocess.py:91-128; reference src/infer/torch_model.py:526-597).
+
+    Same function as the JAX version: a stable descending sort of the scores
+    (jnp.argsort is stable, so ties keep input order), the pairwise IoU with
+    +1e-9 in the denominator, a pair suppresses when iou > iou_threshold and
+    the labels agree, and a greedy pass in sorted order: a candidate is kept
+    unless a kept, higher-ranked candidate suppresses it. The N x N pair
+    matrix is computed on the input's device; the greedy pass (N steps of
+    one row each) runs on the host."""
+    order = torch.argsort(-scores, stable=True)
+    b, lab = boxes[order].float(), labels[order]
+    x1, y1, x2, y2 = b.unbind(-1)
+    area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    iw = (torch.minimum(x2[:, None], x2[None, :]) - torch.maximum(x1[:, None], x1[None, :]))
+    ih = (torch.minimum(y2[:, None], y2[None, :]) - torch.maximum(y1[:, None], y1[None, :]))
+    inter = iw.clamp(min=0) * ih.clamp(min=0)
+    iou = inter / (area[:, None] + area[None, :] - inter + 1e-9)
+    pair = ((iou > iou_threshold) & (lab[:, None] == lab[None, :])).cpu().numpy()
+    n = pair.shape[0]
+    keep_sorted = np.ones(n, bool)
+    for i in range(n):
+        if keep_sorted[i]:  # a kept candidate suppresses the later ones it overlaps
+            keep_sorted[i + 1:] &= ~pair[i, i + 1:]
+    keep = torch.zeros(n, dtype=torch.bool, device=boxes.device)
+    keep[order] = torch.from_numpy(keep_sorted).to(boxes.device)
+    return keep

@@ -23,14 +23,17 @@ The TPU kernel's fast mode also rounds stem3's per-dx partial sums to bf16
 before its one-hot compaction (pallas/stem.py `compact`): an artefact of its
 lane layout, not part of the function, and not copied here.
 
-`stem_fwd` takes the plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel of the mode asked for or raises.
+`stem_fwd` calls the custom op `dfine_port::stem_fwd`, whose CPU
+implementation is the plain version and whose CUDA implementation launches
+the kernel of the mode asked for or raises. The op has a fake (shape-only)
+implementation, so the serving graph exports with torch.export and the
+artifact keeps the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -149,14 +152,41 @@ def _check_weights(x: torch.Tensor, fw: Dict[str, torch.Tensor], keys, fast: boo
 
 
 def stem_fwd(x: torch.Tensor, fw: Dict[str, torch.Tensor], fast: bool = False) -> torch.Tensor:
-    """Same signature and result as stem_fwd_plain; for CUDA tensors launches
-    csrc/stem_tc.cu (fast) or csrc/stem.cu (exact) and counts the launch in
+    """Same signature and result as stem_fwd_plain, through the custom op
+    `dfine_port::stem_fwd`: for CUDA tensors it launches csrc/stem_tc.cu
+    (fast) or csrc/stem.cu (exact) and counts the launch in
     `stem_fwd.launches`, and a fast one also in `stem_fwd.fast_launches`.
     Requires H % 4 == 0 and W % 4 == 0; the output is NHWC, contiguous."""
-    if x.device.type == "cpu":
-        return stem_fwd_plain(x, fw, fast)
+    return torch.ops.dfine_port.stem_fwd(x, [fw[k] for k in WEIGHT_KEYS], fw.get("wtc"), fast)
+
+
+stem_fwd.launches = 0
+stem_fwd.fast_launches = 0
+
+
+# The op takes the folded weights as a list in WEIGHT_KEYS order, so that
+# torch.export can trace the serving graph through it (fake tensors have no
+# data_ptr) and the exported artifact still launches the kernel.
+@torch.library.custom_op("dfine_port::stem_fwd", mutates_args=(), device_types="cpu")
+def _stem_op(x: torch.Tensor, weights: List[torch.Tensor], wtc: Optional[torch.Tensor],
+             fast: bool) -> torch.Tensor:
+    return stem_fwd_plain(x, dict(zip(WEIGHT_KEYS, weights)), fast).contiguous()
+
+
+@_stem_op.register_fake
+def _stem_fake(x, weights, wtc, fast):
+    B, H, W, _ = x.shape
+    return x.new_empty((B, H // 4, W // 4, weights[WEIGHT_KEYS.index("b4")].shape[0]),
+                       dtype=torch.float32)
+
+
+@_stem_op.register_kernel("cuda")
+def _stem_cuda(x, weights, wtc, fast):
     from ._ext import load
 
+    fw = dict(zip(WEIGHT_KEYS, weights))
+    if wtc is not None:
+        fw["wtc"] = wtc
     if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[-1] != 3:
         raise ValueError(f"stem_fwd: expected uint8 [B,H,W,3], got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -184,7 +214,3 @@ def stem_fwd(x: torch.Tensor, fw: Dict[str, torch.Tensor], fast: bool = False) -
     stem_fwd.launches += 1
     stem_fwd.fast_launches += int(fast)
     return out
-
-
-stem_fwd.launches = 0
-stem_fwd.fast_launches = 0

@@ -371,3 +371,21 @@ def test_eval_step_matches_the_cpu_copy(dev, bf16):
             torch.testing.assert_close(got["boxes"][b][keep], want["boxes"][b][keep],
                                        rtol=0, atol=1e-4 * 320)
 
+
+
+def test_profiling_helpers_read_the_card(dev):
+    """utils/profiling.py on a matmul: the profiler's device events, the
+    trace summary, StepTimer and the memory statistics."""
+    from custom_d_fine_tpu_torch.utils import profiling
+
+    a = torch.randn(512, 512, device=dev)
+    spans = profiling.device_spans(lambda: a @ a, 3)
+    assert len(spans) >= 3 and all(d > 0 for _, _, d in spans)
+    assert 0 < profiling.busy_ms(spans) <= sum(d for _, _, d in spans) / 1e6
+    out, top = profiling.trace(lambda x: x @ x, a, n=2)
+    assert out.shape == (512, 512) and top and top[0][1] > 0
+    ev = profiling.events_by_name(lambda: a @ a, n=2)
+    assert ev and ev[0]["calls"] >= 1
+    assert profiling.StepTimer(lambda: a @ a).measure(n=5, warmup=1) > 0
+    mem = profiling.device_memory_stats()
+    assert len(mem) == torch.cuda.device_count() and mem[0]["bytes_in_use_mb"] > 0

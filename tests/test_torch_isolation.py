@@ -1,7 +1,7 @@
 """custom_d_fine_tpu_torch stands alone: every module imports in a process
 where jax and flax cannot be imported, and no custom_d_fine_tpu module gets
 loaded; chip_smoke.py imports neither. Entry points (build_serving,
-build_training, the Trainer and its CLI) default to the card."""
+build_training, the Trainer, TorchModel and the CLIs) default to the card."""
 
 import ast
 import pathlib
@@ -91,3 +91,22 @@ def test_trainer_defaults_to_the_card(tmp_path):
         Trainer(load_config(overrides=[f"train.path_to_save={tmp_path}", "train.device=cpu"]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([f"train.path_to_save={tmp_path}"])
+
+
+def test_runtime_and_its_clis_default_to_the_card(tmp_path):
+    """TorchModel takes device (cuda unless the caller passes cpu); the
+    serving CLIs pass train.device (cuda by default) through."""
+    from custom_d_fine_tpu_torch.cli import bench, export, infer, test_batching
+    from custom_d_fine_tpu_torch.infer.model import TorchModel
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchModel(None, "n", 4, img_size=(256, 256))
+    assert TorchModel(None, "n", 4, img_size=(256, 256), device="cpu",
+                      smoke_test=False).device.type == "cpu"
+    (tmp_path / "val.csv").write_text("a.jpg\n")  # bench reads the split first
+    for cli in (infer, bench, export, test_batching):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([f"train.path_to_save={tmp_path}", f"train.root={tmp_path}",
+                      f"train.data_path={tmp_path}"])

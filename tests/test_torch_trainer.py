@@ -1,7 +1,9 @@
 """The port's Trainer (custom_d_fine_tpu_torch/train/trainer.py) on the CPU,
 on the synthetic YOLO set of tests/test_trainer_integration.py (16 JPEGs of
 200x200 with one red rectangle each; 12 train, 4 val), with
-tests/helpers.py:tiny_config() at 160x160 in float32:
+tests/helpers.py:tiny_config() in float32 at 128x128, the smallest canvas
+whose 80 anchors (strides 16 and 32) cover its 60 queries (the multiscale
+epoch at 160x160, so that its -32 px canvas keeps them covered):
   - the four behaviours of test_trainer_integration.py: one epoch with
     metrics and a checkpoint round trip, resume from `last` (model, EMA and
     optimizer state restored exactly), a multiscale epoch, and the training
@@ -61,7 +63,7 @@ def dataset_root(tmp_path_factory):
 def overrides(root, save, **kw):
     """test_trainer_integration.py's overrides, on the CPU in float32."""
     base = {"train.data_path": root, "train.path_to_save": save, "train.epochs": 1,
-            "train.batch_size": 8, "train.num_workers": 2, "train.img_size": "[160,160]",
+            "train.batch_size": 8, "train.num_workers": 2, "train.img_size": "[128,128]",
             "train.max_gt": 10, "train.label_to_name": "{0: obj}",
             "train.mosaic_augs.mosaic_prob": 0.3, "train.mosaic_augs.no_mosaic_epochs": 0,
             "train.dtype": "float32", "model_name": "n", "exp_name": "ittest"}
@@ -139,7 +141,8 @@ def test_trainer_multiscale_epoch(dataset_root, tmp_path):
     port takes each canvas as it comes. batch_size 6 (12 train images)."""
     trainer = port_trainer(overrides(dataset_root, tmp_path / "ms_run", **{
         "train.batch_size": 6, "train.mosaic_augs.mosaic_prob": 0.0,
-        "train.augs.multiscale_prob": 1.0, "train.augs.multiscale_deltas": "[-32,32]",
+        "train.img_size": "[160,160]", "train.augs.multiscale_prob": 1.0,
+        "train.augs.multiscale_deltas": "[-32,32]",
         "exp_name": "mstest"}))
     history = trainer.train()
     assert len(history) == 1 and np.isfinite(history[0]["train_loss"])
