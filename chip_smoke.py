@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's D-FINE-m serving, training, Trainer and deploy paths on one NVIDIA GPU.
+"""Drive the PyTorch port's D-FINE-m serving, training, Trainer, deploy and segment paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --checks-only   # build + kernel checks only
@@ -57,6 +57,21 @@ without printing its final line:
      the port, and counts its kernel launches (1 stem, 4 MSDA a call);
      times it beside the live forward; runs the bench, quantize_int8 and
      infer CLIs on phase 6's set.
+  8. segment: D-FINE-m with the mask head (task "segment", masks at H/4),
+     each path with its counters set to 0 just before and read just after:
+     (a) build_serving at bs1 and bs4 (1 fast stem and 4 MSDA launches a
+     forward; masks [B,300,160,160] in [0,1]), against CPU copies all f32
+     and in the served modes (scores and the tie-robust detections' masks),
+     bs1 and bs16 timed beside phase 4's detect model, a bs1 profile; (b)
+     build_training with the mask losses at bs16 640^2 bf16, 12 GT masks an
+     image (4 + 4 MSDA launches a step, every loss_mask_* term finite, peak
+     memory, a profile, one f32 step against a CPU copy); (c) one Trainer
+     epoch of task "segment" on a polygon-labelled synthetic set, conf 0 at
+     eval (launches, the mask mAP keys); (d) TorchModel(task="segment") on
+     (c)'s model.pt in float32, bfloat16 and int8 (launches; uint8 masks in
+     the frame, inside their boxes; host ms by part; CPU copies), the f32
+     artifact through export_and_verify and its launches, and the infer
+     CLI's polygon labels.
 Each profile also gives the device time per launch of each of the port's
 own kernels on that path, wherever it ranks.
 Prints a {"kernels": [...]} line, the card's line, and last
@@ -825,22 +840,33 @@ def profile(torch, step, wall_ms, what, n=10):
 
 
 # ---------------------------------------------------------------- phase 5
-def train_batch(torch, B, img, g, max_gt, n_gt=12, num_classes=80):
+def train_batch(torch, B, img, g, max_gt, n_gt=12, num_classes=80, masks=False):
     """tools/bench_train.py:70-85: uint8 images, n_gt valid GT boxes of
-    max_gt per image (cxcy in [0.2, 0.8], wh in [0.05, 0.3])."""
-    return {"images": torch.randint(0, 256, (B, *img, 3), dtype=torch.uint8, generator=g),
-            "labels": torch.randint(0, num_classes, (B, max_gt), generator=g),
-            "boxes": torch.cat([torch.rand(B, max_gt, 2, generator=g) * 0.6 + 0.2,
-                                torch.rand(B, max_gt, 2, generator=g) * 0.25 + 0.05], -1),
-            "valid": (torch.arange(max_gt) < n_gt)[None].expand(B, -1).contiguous()}
+    max_gt per image (cxcy in [0.2, 0.8], wh in [0.05, 0.3]); with `masks`,
+    each valid box's mask at H/4 x W/4 (the mask head's resolution) is an
+    ellipse inscribed in the box."""
+    batch = {"images": torch.randint(0, 256, (B, *img, 3), dtype=torch.uint8, generator=g),
+             "labels": torch.randint(0, num_classes, (B, max_gt), generator=g),
+             "boxes": torch.cat([torch.rand(B, max_gt, 2, generator=g) * 0.6 + 0.2,
+                                 torch.rand(B, max_gt, 2, generator=g) * 0.25 + 0.05], -1),
+             "valid": (torch.arange(max_gt) < n_gt)[None].expand(B, -1).contiguous()}
+    if masks:
+        hm, wm = img[0] // 4, img[1] // 4
+        ys = (torch.arange(hm) + 0.5) / hm
+        xs = (torch.arange(wm) + 0.5) / wm
+        cx, cy, w, h = (batch["boxes"][..., i, None, None] for i in range(4))
+        r2 = ((xs - cx) / (w / 2)) ** 2 + ((ys[:, None] - cy) / (h / 2)) ** 2  # [B,G,hm,wm]
+        batch["masks"] = ((r2 <= 1) & batch["valid"][..., None, None]).to(torch.uint8)
+    return batch
 
 
-def compare_train_step(torch, report, cfg):
+def compare_train_step(torch, report, cfg, key="train_cpu_compare"):
     """One f32 step (TF32 off, bs2 at 320^2) on the card and on a CPU copy
     from the same weights, batch and denoising draws. Conv kernels x sqrt(6),
     as in the serving comparison, so that query selection does not tie.
     total_loss and each loss term at rtol 1e-4 (atol 1e-6; measured 6.9e-6);
-    grad_norm at rtol 1e-3 (measured 1.6e-4) and the update (in units of the step's learning rate) within
+    grad_norm at rtol 1e-3 (measured 1.6e-4) and the update (in units of the
+    learning rate of the parameter's group in this step) within
     0.05 for all but 2% of the elements and within 2.05 for every one: a
     ReLU input within rounding of zero sends its position's gradient one way
     on one side and the other way on the other, and Adam's first step is
@@ -854,7 +880,8 @@ def compare_train_step(torch, report, cfg):
             if isinstance(m, torch.nn.Conv2d):
                 m.weight.mul_(math.sqrt(6.0))
     sd = ref.state_dict()
-    batch = train_batch(torch, 2, (320, 320), torch.Generator().manual_seed(6), cfg.max_gt)
+    batch = train_batch(torch, 2, (320, 320), torch.Generator().manual_seed(6), cfg.max_gt,
+                        masks=cfg.decoder.enable_mask_head)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
@@ -864,7 +891,9 @@ def compare_train_step(torch, report, cfg):
         t0 = time.perf_counter()
         state, m = step(state, {k: v.to(dev) for k, v in batch.items()},
                         torch.Generator().manual_seed(7))
-        lr = state.optimizer.adamw.param_groups[0]["lr"]
+        lr_of = {id(p): g["lr"] for g in state.optimizer.adamw.param_groups
+                 for p in g["params"]}
+        lr = {k: lr_of[id(p)] for k, p in state.model.named_parameters()}
         out[dev] = ({k: float(v) for k, v in m.items()},
                     {k: v.detach().cpu() for k, v in state.model.state_dict().items()})
         log(f"[train] f32 step bs2 320^2 on {dev} in {time.perf_counter() - t0:.1f} s")
@@ -875,9 +904,9 @@ def compare_train_step(torch, report, cfg):
             raise AssertionError(f"train step {k}: card {mg[k]} vs CPU {mc[k]} ({tol})")
     n_far, n_all, worst = 0, 0, 0.0
     for k, w in sd.items():
-        if not w.is_floating_point() or "running" in k:
+        if k not in lr:  # buffers: BatchNorm statistics and counts
             continue
-        d = ((pg[k] - w).double() - (pc[k] - w).double()).abs() / lr
+        d = ((pg[k] - w).double() - (pc[k] - w).double()).abs() / lr[k]
         n_far += int((d > 0.05).sum())
         n_all += d.numel()
         worst = max(worst, d.max().item())
@@ -887,8 +916,8 @@ def compare_train_step(torch, report, cfg):
     log(f"[train] card (f32, TF32 off) vs CPU: total_loss {mg['total_loss']:.6f} vs "
         f"{mc['total_loss']:.6f}, grad_norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; "
         f"updates: {n_far} of {n_all} elements beyond 0.05 lr, largest {worst:.3f} lr")
-    report["train_cpu_compare"] = {"card": mg, "cpu": mc, "updates_beyond_0.05lr": n_far,
-                                   "updates_total": n_all, "update_max_diff_lr": worst}
+    report[key] = {"card": mg, "cpu": mc, "updates_beyond_0.05lr": n_far,
+                   "updates_total": n_all, "update_max_diff_lr": worst}
 
 
 def phase_training(torch, report, batch_size=16, n_warmup=3, n_steps=10):
@@ -958,10 +987,12 @@ TRAINER_METRIC_KEYS = {"f1", "precision", "recall", "iou", "TPs", "FPs", "FNs", 
                        "mAP_50_95", "epoch", "train_loss"}
 
 
-def write_yolo_set(root, n_train, n_val, num_classes, seed=0):
+def write_yolo_set(root, n_train, n_val, num_classes, seed=0, polygons=False):
     """A synthetic YOLO set: JPEGs of 640x480 and 480x640 (grey ground, a few
     coloured rectangles, mild noise), each rectangle a label row; 1-12
-    objects an image; train.csv and val.csv."""
+    objects an image; train.csv and val.csv. With `polygons` each object is
+    a triangle over the rectangle's lower-left half, labelled as a YOLO-seg
+    polygon row."""
     import cv2
     import numpy as np
 
@@ -977,7 +1008,13 @@ def write_yolo_set(root, n_train, n_val, num_classes, seed=0):
             bw, bh = int(rng.integers(24, w // 3)), int(rng.integers(24, h // 3))
             x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
             cls = int(rng.integers(0, num_classes))
-            img[y1:y1 + bh, x1:x1 + bw] = rng.integers(0, 256, 3)
+            color = [int(c) for c in rng.integers(0, 256, 3)]
+            if polygons:
+                tri = np.array([[x1, y1], [x1 + bw, y1 + bh], [x1, y1 + bh]], np.int32)
+                cv2.fillPoly(img, [tri], color)
+                rows.append(f"{cls} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in tri))
+                continue
+            img[y1:y1 + bh, x1:x1 + bw] = color
             rows.append(f"{cls} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
                         f"{bw / w:.6f} {bh / h:.6f}")
         name = f"im{i:03d}.jpg"
@@ -1384,6 +1421,418 @@ def phase_deploy(torch, report, workdir, card, device="cuda", model_name="m", im
     return {"deploy": deploy, "artifact": artifact}
 
 
+# ---------------------------------------------------------------- phase 8
+SEG_MASK_TOL = 1e-4  # mask probabilities, card (all f32) vs CPU, tie-robust detections
+SEG_MASK_SAME_TOL = 2e-2  # the same, as served (fast stem, bf16 MSDA value) vs CPU same modes
+SEG_METRIC_KEYS = TRAINER_METRIC_KEYS | {"mAP_50_mask", "mAP_50_95_mask"}
+
+
+def segment_config():
+    """D-FINE-m with the mask head, as both JAX entry points build it for
+    task "segment" (mask_dim 256, masks at H/4)."""
+    from custom_d_fine_tpu_torch.configs import get_model_config
+
+    return get_model_config("m", enable_mask_head=True)
+
+
+def masks_ok(torch, masks, bs, img):
+    shape = (bs, 300, img[0] // 4, img[1] // 4)
+    assert tuple(masks.shape) == shape, (tuple(masks.shape), shape)
+    assert torch.isfinite(masks).all(), "non-finite masks"
+    assert ((masks >= 0) & (masks <= 1)).all(), "mask probabilities outside [0, 1]"
+
+
+def compare_masks(got, want, gap=1e-4):
+    """Largest difference of the top-K masks (probabilities) over the
+    detections whose score stands more than `gap` from its neighbours on
+    both sides (compare_detections' rule: nearer ties may swap; the score
+    errors measured are below gap / 2), and how many were compared."""
+    import numpy as np
+
+    gs, ws = got["scores"].cpu().numpy(), want["scores"].cpu().numpy()
+    err, n = 0.0, 0
+    for b in range(gs.shape[0]):
+        keep = np.ones(gs.shape[1], bool)
+        for sc in (gs[b], ws[b]):
+            d = np.abs(np.diff(sc)) > gap
+            keep[:-1] &= d
+            keep[1:] &= d
+        n += int(keep.sum())
+        if keep.any():
+            d = (got["masks"][b][keep].float().cpu() - want["masks"][b][keep].float().cpu()).abs()
+            err = max(err, d.max().item())
+    return err, n
+
+
+def segment_serving(torch, out):
+    """(a) build_serving of the segment model; counts, masks, the CPU
+    comparison, bs1/bs16 times beside phase 4's and a bs1 profile."""
+    from custom_d_fine_tpu_torch.deploy.reparam import convert_to_deploy
+    from custom_d_fine_tpu_torch.deploy.serving import build_serving, make_serving_forward
+    from custom_d_fine_tpu_torch.models.dfine import build_model
+    from custom_d_fine_tpu_torch.ops.msda import msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+
+    cfg = segment_config()
+    t0 = time.perf_counter()
+    fn, model = build_serving(cfg, 80, IMG, seed=0)
+    log(f"[segment] build_serving(m + mask head, 80, {IMG}) in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(3)
+    batches = {bs: torch.randint(0, 256, (bs, *IMG, 3), dtype=torch.uint8, generator=g).cuda()
+               for bs in (1, 4, 16)}
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = stem_fwd.fast_launches = msda_fwd.launches = 0
+    n_fwd = 0
+    for bs in (1, 4):
+        for _ in range(2):
+            det = fn(batches[bs])
+            n_fwd += 1
+            detections_ok(det, bs)
+            masks_ok(torch, det["masks"], bs, IMG)
+    torch.cuda.synchronize()
+    launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches}
+    n_layers = cfg.decoder.num_layers
+    want = {"stem_fwd": n_fwd, "msda_fwd": n_layers * n_fwd}
+    log(f"[segment] serving: {n_fwd} forwards (bs1 x2, bs4 x2): launches {launches}, "
+        f"{stem_fwd.fast_launches} fast (expected {want}, all fast); masks "
+        f"{tuple(det['masks'].shape)} in [0, 1]")
+    if launches != want or stem_fwd.fast_launches != n_fwd:
+        raise AssertionError(f"expected {want}, all fast; got {launches}, "
+                             f"{stem_fwd.fast_launches} fast")
+
+    # ---- the card against a CPU copy (conv kernels x sqrt(6), as phase 4)
+    ref = build_model(cfg, num_classes=80, seed=1)
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(math.sqrt(6.0))
+    convert_to_deploy(ref)
+    x1 = batches[1]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want_f32 = make_serving_forward(copy.deepcopy(ref), IMG)(x1.cpu())
+    want_same = make_serving_forward(copy.deepcopy(ref), IMG, msda_value_dtype=torch.bfloat16,
+                                     stem_fast=True)(x1.cpu())
+    gpu = ref.cuda()
+    got_f32 = make_serving_forward(gpu, IMG, msda_value_dtype=None, stem_fast=False)(x1)
+    got = make_serving_forward(gpu, IMG)(x1)
+    err, _ = compare_detections(got_f32, want_f32, IMG)
+    merr, n_keep = compare_masks(got_f32, want_f32)
+    err_same, _ = compare_detections(got, want_same, IMG, tol=SERVED_SAME_TOL)
+    merr_same, n_same = compare_masks(got, want_same)
+    log(f"[segment] card vs CPU, bs1: all f32 (TF32 off) scores {err:.3e} (1e-4), masks "
+        f"{merr:.3e} ({SEG_MASK_TOL:g}) on {n_keep} tie-robust detections; as served vs CPU in "
+        f"the same modes scores {err_same:.3e} ({SERVED_SAME_TOL:g}), masks {merr_same:.3e} "
+        f"({SEG_MASK_SAME_TOL:g}) on {n_same}")
+    if merr > SEG_MASK_TOL or merr_same > SEG_MASK_SAME_TOL or min(n_keep, n_same) < 5:
+        raise AssertionError(f"masks differ from the CPU forward: {merr}, {merr_same} (on "
+                             f"{n_keep}, {n_same} detections)")
+    out["cpu_compare"] = {"scores_f32": err, "masks_f32": merr, "robust_f32": n_keep,
+                          "scores_same_modes": err_same, "masks_same_modes": merr_same,
+                          "robust_same_modes": n_same}
+    del gpu, ref
+
+    # ---- time at PyTorch's default precision, beside phase 4's detect model
+    torch.backends.cudnn.allow_tf32 = True
+    timing = {}
+    for bs in (1, 16):
+        t = host_ms(lambda: fn(batches[bs]), iters=100 if bs == 1 else 20)
+        timing[f"bs{bs}_default"] = t
+    t1, t16 = timing["bs1_default"], timing["bs16_default"]
+    detect = out.get("detect_serving_ms_per_request", {})
+    d1, d16 = (detect.get(k, {}).get("median") for k in ("bs1_default", "bs16_default"))
+    log(f"[segment] serving default precision: bs1 request median {t1['median']:.3f} ms (p90 "
+        f"{t1['p90']:.3f}; detect, phase 4: {d1 if d1 is None else f'{d1:.3f}'}); bs16 "
+        f"{t16['median'] / 16:.3f} ms/img (detect: {d16 if d16 is None else f'{d16 / 16:.3f}'})")
+    out["serving_ms_per_request"] = timing
+    out["profile_serving_bs1"] = profile(torch, lambda: fn(batches[1]), t1["median"],
+                                         "segment serving bs1")
+    torch.backends.cudnn.allow_tf32 = False
+    return launches
+
+
+def segment_training(torch, out, batch_size=16, n_warmup=3, n_steps=6):
+    """(b) build_training of the segment model (mask losses on), bs16 640^2
+    bf16 with 12 GT masks an image; launches, loss_mask_* terms, peak
+    memory, a profile, one f32 step against a CPU copy."""
+    from custom_d_fine_tpu_torch.ops.msda import msda_bwd, msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+    from custom_d_fine_tpu_torch.train.train_step import build_training
+
+    cfg = segment_config()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    step, state = build_training(cfg, 80, seed=0)
+    batch = {k: v.cuda() for k, v in train_batch(
+        torch, batch_size, IMG, torch.Generator().manual_seed(5), cfg.max_gt, masks=True).items()}
+    dn = torch.Generator().manual_seed(0)
+    for _ in range(n_warmup):
+        state, m = step(state, batch, dn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = msda_fwd.launches = msda_bwd.launches = 0
+    times, terms = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, dn)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        terms.append(m)
+    launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches,
+                "msda_bwd": msda_bwd.launches}
+    n_layers = cfg.decoder.num_layers
+    want = {"stem_fwd": 0, "msda_fwd": n_layers * n_steps, "msda_bwd": n_layers * n_steps}
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    values = {k: [float(t[k]) for t in terms] for k in terms[0]}
+    mask_terms = sorted(k for k in values if k.startswith("loss_mask_"))
+    want_terms = {f"loss_mask_{t}{sfx}" for t in ("bce", "dice") for sfx in
+                  ["", "_dn_final"] + [f"_aux_{i}" for i in range(n_layers - 1)]
+                  + [f"_dn_{i}" for i in range(n_layers - 1)]}
+    if set(mask_terms) != want_terms:
+        raise AssertionError(f"mask loss terms {mask_terms}, expected {sorted(want_terms)}")
+    bad = [k for k, v in values.items() if not all(math.isfinite(x) for x in v)]
+    if bad:
+        raise AssertionError(f"non-finite training metrics: {bad}")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[segment] training bs{batch_size} 640^2 bf16 with masks: {n_steps} steps, launches "
+        f"{launches} (expected {want}); {ms:.2f} ms/step median ({batch_size * 1e3 / ms:.1f} "
+        f"img/s; detect, phase 5: {out.get('detect_train_ms', float('nan')):.2f}); peak device "
+        f"memory {peak:.2f} GB; {len(mask_terms)} loss_mask_* terms, all finite (last "
+        f"loss_mask_bce {values['loss_mask_bce'][-1]:.4f}, loss_mask_dice "
+        f"{values['loss_mask_dice'][-1]:.4f})")
+    out["training"] = {"ms_per_step": times, "ms_per_step_median": ms,
+                       "img_per_s": batch_size * 1e3 / ms, "peak_mem_gb": peak,
+                       "launches": launches, "metrics": values}
+    out["profile_train_bs16"] = profile(torch, lambda: step(state, batch, dn), ms,
+                                        "segment training bs16", n=3)
+    del step, state, batch
+    compare_train_step(torch, out, cfg, key="train_cpu_compare")
+    return launches
+
+
+def segment_trainer(torch, out, workdir, overrides=(), n_train=32, n_val=8):
+    """(c) one epoch of task "segment" on a polygon-labelled synthetic set:
+    D-FINE-m with the mask head, bs16 640^2 bf16, EMA, conf 0 at eval so
+    that every top-300 mask goes through the mask mAP. The run goes to
+    <workdir>/seg_run, where (d) finds model.pt."""
+    from custom_d_fine_tpu_torch.ops.msda import msda_bwd, msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+    from custom_d_fine_tpu_torch.train.trainer import Trainer
+    from custom_d_fine_tpu_torch.utils.config import load_config
+
+    num_classes = 80
+    data = os.path.join(workdir, "seg_data")
+    write_yolo_set(data, n_train, n_val, num_classes, seed=1, polygons=True)
+    cfg = load_config(overrides=[
+        "task=segment", "model_name=m", f"train.data_path={data}",
+        f"train.path_to_save={workdir}/seg_run", "train.epochs=1", "train.batch_size=16",
+        "train.num_workers=4", f"train.img_size=[{IMG[0]},{IMG[1]}]", "train.dtype=bfloat16",
+        "train.use_ema=true", "train.conf_thresh=0.0", "train.mosaic_augs.mosaic_prob=0.8",
+        "train.mosaic_augs.no_mosaic_epochs=0", "exp_name=chip_smoke_segment", *overrides])
+    cfg["train"]["label_to_name"] = {i: f"class_{i}" for i in range(num_classes)}
+    trainer = Trainer(cfg)
+    if not trainer.model_cfg.decoder.enable_mask_head:
+        raise AssertionError("task segment built no mask head")
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = msda_fwd.launches = msda_bwd.launches = 0
+    history = trainer.train()
+    launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches,
+                "msda_bwd": msda_bwd.launches}
+    t = trainer.timings[0]
+    n_eval = -(-n_val // trainer.loader.batch_size)
+    n_layers = trainer.model_cfg.decoder.num_layers
+    want = {"stem_fwd": 0, "msda_fwd": n_layers * (t["steps"] + n_eval),
+            "msda_bwd": n_layers * t["steps"]}
+    m = history[0]
+    log(f"[segment] Trainer, 1 epoch ({t['steps']} steps + {n_eval} eval batch): launches "
+        f"{launches} (expected {want}); decision metrics {trainer.decision_metrics}; "
+        f"mAP_50_mask {m.get('mAP_50_mask')}, mAP_50_95_mask {m.get('mAP_50_95_mask')}, "
+        f"train_loss {m['train_loss']:.4f}; epoch {t['epoch_s']:.2f} s = training "
+        f"{t['train_s']:.2f} + eval {t['eval_s']:.2f} + checkpoints {t['checkpoint_s']:.2f} s")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    if set(m) != SEG_METRIC_KEYS:
+        raise AssertionError(f"metrics keys {sorted(m)}, expected {sorted(SEG_METRIC_KEYS)}")
+    if not math.isfinite(m["train_loss"]):
+        raise AssertionError(f"non-finite training loss {m['train_loss']}")
+    if not os.path.exists(os.path.join(workdir, "seg_run", "model.pt")):
+        raise AssertionError("the segment Trainer wrote no model.pt")
+    out["trainer"] = {"timings": t, "metrics": m, "launches": launches,
+                      "decision_metrics": trainer.decision_metrics}
+    return launches
+
+
+def segment_deploy(torch, out, workdir, card, device="cuda", img=IMG, model_name="m",
+                   num_classes=80, n_timed=20):
+    """(d) TorchModel(task="segment") on (c)'s model.pt in float32, bfloat16
+    and int8 (conf 0, NMS on): counted requests on (c)'s val JPEGs with
+    keep_ratio off and on, masks in the frame and inside their boxes, host
+    ms by part, a CPU copy; the f32 artifact through export_and_verify; the
+    infer CLI's polygon labels."""
+    import cv2
+    import numpy as np
+    import yaml
+
+    from custom_d_fine_tpu_torch.cli import infer
+    from custom_d_fine_tpu_torch.deploy.export import export_and_verify, load_inference_artifact
+    from custom_d_fine_tpu_torch.infer.model import DTYPES, TorchModel
+    from custom_d_fine_tpu_torch.ops.msda import msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+    from custom_d_fine_tpu_torch.utils.config import load_config
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model_pt = os.path.join(workdir, "seg_run", "model.pt")
+    data = os.path.join(workdir, "seg_data")
+    with open(os.path.join(data, "val.csv")) as f:
+        names = [n.strip() for n in f if n.strip()]
+    frames = [cv2.imread(os.path.join(data, "images", n)) for n in names]
+    kw = dict(img_size=img, task="segment", conf_thresh=0.0, enable_nms=True)
+    runtimes = {d: TorchModel(model_pt, model_name, num_classes, dtype=d, device=device, **kw)
+                for d in DTYPES}
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = stem_fwd.fast_launches = msda_fwd.launches = 0
+    n_calls, n_masks = 0, []
+    for dtype, rt in runtimes.items():
+        for keep_ratio in (False, True):
+            rt.keep_ratio = keep_ratio
+            for im in frames:
+                det = rt(im)[0]
+                detections_in_frame(det, im.shape, num_classes)
+                m = det["masks"]
+                assert m.dtype == np.uint8 and m.shape == (len(det["scores"]), *im.shape[:2]), \
+                    (m.dtype, m.shape)
+                assert set(np.unique(m)) <= {0, 1}, "masks not binary"
+                for mask, box in zip(m, det["boxes"]):
+                    x1, y1, x2, y2 = (int(v) for v in box)
+                    inside = np.zeros_like(mask)
+                    inside[max(y1, 0):y2, max(x1, 0):x2] = 1
+                    assert not (mask & (1 - inside)).any(), "mask outside its box"
+                n_calls += 1
+                n_masks.append(len(m))
+    torch.cuda.synchronize()
+    deploy = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches}
+    n_layers = runtimes["float32"].model.cfg.decoder.num_layers
+    want = {"stem_fwd": n_calls, "msda_fwd": n_layers * n_calls}
+    log(f"[segment] runtime: {n_calls} requests ({len(frames)} frames x keep_ratio off/on x 3 "
+        f"dtypes): launches {deploy}, {stem_fwd.fast_launches} fast (expected {want}); masks "
+        f"uint8 in the frame, inside their boxes, {min(n_masks)}-{max(n_masks)} a request "
+        f"after NMS")
+    if deploy != want or stem_fwd.fast_launches != n_calls:
+        raise AssertionError(f"expected launches {want}, all fast; got {deploy}")
+
+    # ---- host ms per request at bs1, split as the runtime records it
+    timing = {}
+    for dtype, rt in runtimes.items():
+        rt.keep_ratio = False
+        parts = {k: [] for k in ("total_ms", "preprocess_ms", "forward_ms", "postprocess_ms")}
+        for i in range(n_timed + 5):
+            t1 = time.perf_counter()
+            rt(frames[i % len(frames)])
+            parts["total_ms"].append((time.perf_counter() - t1) * 1e3)
+            for k, v in rt.timings.items():
+                parts[k].append(v)
+        timing[dtype] = {k: percentiles(v[5:]) for k, v in parts.items()}  # 5 warm-up
+        t = timing[dtype]
+        log(f"[segment] {dtype} TorchModel(task=segment).__call__ bs1, host ms p50/p90: total "
+            f"{t['total_ms']['p50']:.3f}/{t['total_ms']['p90']:.3f} = preprocess "
+            f"{t['preprocess_ms']['p50']:.3f}/{t['preprocess_ms']['p90']:.3f} + forward "
+            f"{t['forward_ms']['p50']:.3f}/{t['forward_ms']['p90']:.3f} + postprocess (NMS, "
+            f"masks) {t['postprocess_ms']['p50']:.3f}/{t['postprocess_ms']['p90']:.3f} "
+            f"(n={n_timed}; {card})")
+    out["request_ms"] = timing
+
+    # ---- the card against a CPU copy of the same runtime, one frame
+    rt32 = runtimes["float32"]
+    canvas = torch.from_numpy(rt32._prepare(frames[0])[0][None])
+    cpu_cmp = {}
+    for dtype in ("float32", "int8"):
+        cpu = TorchModel(model_pt, model_name, num_classes, img_size=img, task="segment",
+                         dtype=dtype, device="cpu", smoke_test=False)
+        want_d = cpu.infer(canvas)
+        got_d = {k: v.cpu() for k, v in runtimes[dtype].infer(canvas.to(device)).items()}
+        err = (got_d["scores"] - want_d["scores"]).abs().max().item()
+        merr, n = compare_masks(got_d, want_d)
+        cpu_cmp[dtype] = {"scores": err, "masks": merr, "robust": n}
+        log(f"[segment] {dtype} runtime, card (as served) vs its CPU copy: top-300 scores "
+            f"{err:.3e} ({DEPLOY_TOL:g}), masks {merr:.3e} ({SEG_MASK_SAME_TOL:g}) on {n} "
+            f"tie-robust detections")
+        if err > DEPLOY_TOL or merr > SEG_MASK_SAME_TOL:
+            raise AssertionError(f"{dtype} segment runtime differs from its CPU copy")
+    out["cpu_compare_runtime"] = cpu_cmp
+
+    # ---- the f32 artifact: export_and_verify, then the loaded artifact's launches
+    art_dir = tempfile.mkdtemp(prefix="seg_artifact_", dir=workdir)
+    t0 = time.perf_counter()
+    path = export_and_verify(rt32.model, img, os.path.join(art_dir, "model_float32.pt2"))
+    export_s = time.perf_counter() - t0
+    art = load_inference_artifact(path)
+    x = canvas.to(device)
+    with torch.inference_mode():
+        stem_fwd.launches = stem_fwd.fast_launches = msda_fwd.launches = 0
+        got = art(x)
+        torch.cuda.synchronize()
+    artifact = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches}
+    log(f"[segment] artifact {os.path.getsize(path) / 1e6:.1f} MB: export_and_verify passed in "
+        f"{export_s:.1f} s; outputs {sorted(got)}, masks {tuple(got['masks'].shape)}; 1 call: "
+        f"launches {artifact}")
+    if artifact != {"stem_fwd": 1, "msda_fwd": n_layers} or "masks" not in got:
+        raise AssertionError(f"the segment artifact: {artifact}, {sorted(got)}")
+    out["artifact"] = {"bytes": os.path.getsize(path), "export_and_verify_s": export_s,
+                       "launches": artifact}
+    shutil.rmtree(art_dir, ignore_errors=True)
+
+    # ---- the infer CLI writes polygons for task segment
+    src = os.path.join(workdir, "seg_infer_src")
+    os.makedirs(src)
+    for n in names[:2]:
+        shutil.copy(os.path.join(data, "images", n), src)
+    cfg = load_config(overrides=[
+        "task=segment", f"model_name={model_name}", f"train.path_to_save={workdir}/seg_cli",
+        f"train.img_size=[{img[0]},{img[1]}]", f"train.device={device}",
+        f"train.path_to_test_data={src}", f"train.infer_path={workdir}/seg_infer_out",
+        "train.conf_thresh=0.0"])
+    cfg = json.loads(json.dumps(cfg))
+    cfg["train"]["label_to_name"] = {i: f"class_{i}" for i in range(num_classes)}
+    cfg_path = os.path.join(workdir, "segment.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    infer.main(["--config", cfg_path, "--weights", model_pt])
+    rows = []
+    for n in names[:2]:
+        with open(os.path.join(workdir, "seg_infer_out", "labels",
+                               n.rsplit(".", 1)[0] + ".txt")) as f:
+            rows += [line.split() for line in f if line.strip()]
+    n_poly = sum(len(r) >= 7 for r in rows)
+    log(f"[segment] infer CLI (task segment) on 2 JPEGs: {len(rows)} label rows, {n_poly} of "
+        f"them polygons")
+    if not n_poly:
+        raise AssertionError("the infer CLI wrote no polygon")
+    out["cli_infer"] = {"rows": len(rows), "polygons": n_poly}
+    return {"segment_deploy": deploy, "segment_artifact": artifact}
+
+
+def phase_segment(torch, report, workdir, card):
+    """Phase 8: the segment model (D-FINE-m with the mask head) served,
+    trained (step and Trainer) and deployed. Each path's counts are set to
+    0 just before it runs and read just after."""
+    out = report.setdefault("segment", {"card": card})
+    out["detect_serving_ms_per_request"] = report.get("serving_ms_per_request", {})
+    out["detect_train_ms"] = report.get("training", {}).get("ms_per_step_median", float("nan"))
+    paths = {"segment_serving": segment_serving(torch, out),
+             "segment_training": segment_training(torch, out),
+             "segment_trainer": segment_trainer(torch, out, workdir)}
+    paths.update(segment_deploy(torch, out, workdir, card))
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checks-only", action="store_true",
@@ -1410,6 +1859,7 @@ def main() -> int:
             try:
                 paths["trainer"] = phase_trainer(torch, report, workdir)
                 paths.update(phase_deploy(torch, report, workdir, card))
+                paths.update(phase_segment(torch, report, workdir, card))
             finally:
                 shutil.rmtree(workdir, ignore_errors=True)
         for row in rows:  # each path's launches, from its own zeroed counters

@@ -88,9 +88,11 @@ def export_and_verify(model, img_size: Tuple[int, int], out_path: Path, batch_si
     """Export, load the artifact back and hold it against the live serving
     forward on a random uint8 batch (stands in for the reference's
     cross-backend F1 consistency test, bench.py:236-267). On the CPU every
-    output at rtol = atol = 1e-5. On the card, as the JAX package's check on
-    the TPU, set-based (check_same_detections): near-tied entries may swap
-    places in the sorted top-K between two runs of the graph."""
+    output at rtol = atol = 1e-5 (a segment model's masks too). On the card,
+    as the JAX package's check on the TPU, set-based (check_same_detections,
+    on the boxes, labels and scores): near-tied entries may swap places in
+    the sorted top-K between two runs of the graph. Both sides must return
+    the same outputs (a segment artifact carries "masks")."""
     path = export_inference_artifact(model, img_size, out_path, batch_size, bf16=bf16)
     fn = load_inference_artifact(path)
     device = next(model.parameters()).device
@@ -101,8 +103,9 @@ def export_and_verify(model, img_size: Tuple[int, int], out_path: Path, batch_si
     with torch.inference_mode():
         a = {k: v.cpu().numpy() for k, v in fn(img).items()}
         b = {k: v.cpu().numpy() for k, v in live(img).items()}
+    assert a.keys() == b.keys(), (sorted(a), sorted(b))
     if device.type == "cpu":
-        for k in ("boxes", "scores", "labels"):
+        for k in a:  # boxes, scores, labels, and a segment model's masks
             np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5, err_msg=k)
     else:
         check_same_detections(a, b, top_check)

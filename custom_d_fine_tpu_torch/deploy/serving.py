@@ -117,7 +117,7 @@ class ServingModule(nn.Module):
             else:
                 out = torch.func.functional_call(self.model, self.qweights(), (x,), kw)
         return topk_detections(out["pred_logits"], out["pred_boxes"].float(), self.num_top,
-                               (H, W))
+                               (H, W), pred_masks=out.get("pred_masks"))
 
 
 def make_serving_forward(model: DFINE, img_size: Tuple[int, int], num_top: int = 300,
@@ -126,8 +126,9 @@ def make_serving_forward(model: DFINE, img_size: Tuple[int, int], num_top: int =
                          bf16: bool = False
                          ) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
     """(deploy model on its device) -> fn(images_u8 [B,H,W,3]) -> detections
-    {labels [B,K] int32, boxes [B,K,4] xyxy pixels, scores [B,K]}; the
-    ServingModule it runs is `fn.module`.
+    {labels [B,K] int32, boxes [B,K,4] xyxy pixels, scores [B,K]}, and with
+    the mask head masks [B,K,H/4,W/4] (probabilities, f32); the ServingModule
+    it runs is `fn.module`.
 
     H and W must be multiples of 32 (the backbone's stride). msda_value_dtype
     "auto" takes bf16 on the card, as the TPU serving path's pallas_sep_fast

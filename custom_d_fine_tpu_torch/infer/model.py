@@ -44,10 +44,31 @@ def mask_to_polygons(mask: np.ndarray) -> List[np.ndarray]:
     return [c.reshape(-1, 2).astype(np.float32) for c in cnts if len(c) >= 3]
 
 
+def masks_to_frame(masks: np.ndarray, boxes: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """Mask probabilities at H/4 of the canvas [n, Hm, Wm] and their boxes
+    (xyxy pixels of the original frame) -> uint8 {0,1} masks (n, oh, ow):
+    each resized straight to the frame (cv2.INTER_LINEAR; with keep_ratio the
+    letterbox padding is not cut off first, as in the JAX runtime and
+    Trainer), binarised at 0.5 and zeroed outside its box (JAX
+    infer/model.py:172-190 and train/trainer.py:586-605; reference
+    torch_model.py:104-151, 208-223). The runtime and the Trainer's eval
+    both use it."""
+    full = []
+    for m, b in zip(masks, boxes):
+        mm = (cv2.resize(m.astype(np.float32), (ow, oh), interpolation=cv2.INTER_LINEAR)
+              > 0.5).astype(np.uint8)
+        crop = np.zeros_like(mm)
+        x1, y1, x2, y2 = (int(v) for v in b)
+        crop[max(y1, 0):y2, max(x1, 0):x2] = mm[max(y1, 0):y2, max(x1, 0):x2]
+        full.append(crop)
+    return np.stack(full) if full else np.zeros((0, oh, ow), np.uint8)
+
+
 class TorchModel:
     """BGR HWC uint8 image(s) -> list of {"labels", "boxes" (xyxy pixels of
     the original image), "scores"} dicts, thresholded (and NMS-filtered when
-    enable_nms). Runs on the card unless device="cpu"."""
+    enable_nms); with task="segment" also "masks", uint8 (n, h, w) in the
+    original frame. Runs on the card unless device="cpu"."""
 
     def __init__(
         self,
@@ -138,7 +159,10 @@ class TorchModel:
             keep = keep & classwise_nms_padded(
                 torch.from_numpy(boxes), torch.from_numpy(scores), torch.from_numpy(labels),
                 self.nms_iou_thresh).numpy()
-        return {"labels": labels[keep], "boxes": boxes[keep], "scores": scores[keep]}
+        out = {"labels": labels[keep], "boxes": boxes[keep], "scores": scores[keep]}
+        if self.task == "segment":
+            out["masks"] = masks_to_frame(dets["masks"][keep], out["boxes"], oh, ow)
+        return out
 
     def __call__(self, images_bgr: Union[np.ndarray, Sequence[np.ndarray]]) -> List[Dict]:
         """BGR HWC image (or list) -> list of detection dicts (reference

@@ -4,10 +4,10 @@ Counterpart of custom_d_fine_tpu/models/decoder.py; parity target reference
 src/d_fine/arch/dfine_decoder.py: MSDeformableAttention (:49-178),
 TransformerDecoderLayer (:181-255), Gate (:258-271), Integral (:274-295),
 LQE (:298-313), TransformerDecoder FDR loop (:373-524), DFINETransformer
-(:527-1057). In train mode it adds the CDN denoising queries and returns the
-aux, pre, enc and dn output sets the criterion reads, with .detach() exactly
-where the JAX package has stop_gradient. The mask head comes with a later
-slice.
+(:527-1057), MaskDecoder (:316-370) and the mask head (:925-1005). In train
+mode it adds the CDN denoising queries and returns the aux, pre, enc and dn
+output sets the criterion reads, with .detach() exactly where the JAX
+package has stop_gradient.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.boxes import inverse_sigmoid
@@ -25,6 +26,7 @@ from ..ops.msda import msda
 from .denoising import build_cdn_group, build_dn_attn_mask, dn_layout
 from .layers import LN_EPS, MLP, BatchNorm, MultiHeadAttention, get_activation
 
+GN_EPS = 1e-6  # flax nn.GroupNorm's default, which the JAX package uses (torch's is 1e-5)
 
 
 class MSDeformableAttention(nn.Module):
@@ -130,6 +132,42 @@ class LQE(nn.Module):
         return scores + self.reg_conf(stat.reshape(B, L, -1))
 
 
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(..., "bilinear") for an upsampling NCHW resize: half-pixel
+    centres, and at the borders the weights of the missing neighbours dropped
+    and the rest renormalised, which is align_corners=False's clamp of the
+    source coordinate. (JAX antialiases only when it downsamples, and the
+    mask head only upsamples.)"""
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+
+class MaskDecoder(nn.Module):
+    """Fuse the PAN levels into H/4 mask features (reference
+    dfine_decoder.py:316-370; JAX models/decoder.py:182-207): per level a 1x1
+    lateral conv and GroupNorm(32), the coarser levels resized to the finest
+    and summed, a 3x3 fusion conv with GroupNorm and ReLU, a 2x upsample and
+    a 3x3 up_conv with GroupNorm (`bn1`) and ReLU. NCHW in, [B, out_ch, 2H0,
+    2W0] out, where H0 x W0 is the finest level."""
+
+    def __init__(self, in_channels: Sequence[int], out_ch: int = 256, n_groups: int = 32):
+        super().__init__()
+        self.lateral = nn.ModuleList(nn.Conv2d(c, out_ch, 1, bias=False) for c in in_channels)
+        self.bn = nn.ModuleList(nn.GroupNorm(n_groups, out_ch, eps=GN_EPS) for _ in in_channels)
+        self.fusion_conv = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
+        self.fusion_norm = nn.GroupNorm(n_groups, out_ch, eps=GN_EPS)
+        self.up_conv = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
+        self.bn1 = nn.GroupNorm(n_groups, out_ch, eps=GN_EPS)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        base = None
+        for lateral, norm, f in zip(self.lateral, self.bn, feats):
+            t = norm(lateral(f))
+            base = t if base is None else base + resize_bilinear(t, tuple(base.shape[-2:]))
+        x = F.relu(self.fusion_norm(self.fusion_conv(base)))
+        x = resize_bilinear(x, (2 * x.shape[2], 2 * x.shape[3]))
+        return F.relu(self.bn1(self.up_conv(x)))
+
+
 def generate_anchors(spatial_shapes: Sequence[Tuple[int, int]], grid_size: float = 0.05,
                      eps: float = 1e-2) -> Tuple[np.ndarray, np.ndarray]:
     """Log-space anchor priors per level (reference dfine_decoder.py:803-826);
@@ -167,7 +205,8 @@ class DFINETransformer(nn.Module):
                  label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0,
                  eval_idx: int = -1, eps: float = 1e-2, reg_max: int = 32,
                  reg_scale: float = 4.0, cross_attn_method: str = "default",
-                 query_select_method: str = "default"):
+                 query_select_method: str = "default", enable_mask_head: bool = False,
+                 mask_dim: int = 256):
         super().__init__()
         if query_select_method != "default":
             raise NotImplementedError(
@@ -207,6 +246,10 @@ class DFINETransformer(nn.Module):
         self.dec_score_head = nn.ModuleList(nn.Linear(C, num_classes) for _ in range(num_layers))
         self.dec_bbox_head = nn.ModuleList(
             MLP(C, C, 4 * (reg_max + 1), 3) for _ in range(num_layers))
+        self.enable_mask_head, self.mask_dim = enable_mask_head, mask_dim
+        if enable_mask_head:
+            self.mask_decoder = MaskDecoder(feat_channels, mask_dim)
+            self.mask_head = MLP(C, C, mask_dim, 3)
         self.register_buffer("project", weighting_function(reg_max, 0.5, reg_scale),
                              persistent=False)
         self._const_cache: Dict = {}
@@ -222,8 +265,10 @@ class DFINETransformer(nn.Module):
                 msda_value_dtype: Optional[torch.dtype] = None,
                 targets: Optional[Dict[str, torch.Tensor]] = None,
                 dn_draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, object]:
-        """NCHW PAN outputs -> {"pred_logits" [B,Q,C], "pred_boxes" [B,Q,4] cxcywh}
-        and, in train mode, the criterion's output sets. msda_value_dtype: dtype
+        """NCHW PAN outputs -> {"pred_logits" [B,Q,C], "pred_boxes" [B,Q,4] cxcywh,
+        with the mask head "pred_masks" [B,Q,Hm,Wm] (probabilities in eval
+        mode, logits in train mode; Hm x Wm is twice the finest level)} and,
+        in train mode, the criterion's output sets. msda_value_dtype: dtype
         of the MSDA value map (None keeps the memory's dtype; the card's serving
         and bf16 training pass bf16, as the TPU's pallas_sep_fast does).
         targets {labels [B,G], boxes [B,G,4], valid [B,G]} and dn_draws
@@ -287,11 +332,13 @@ class DFINETransformer(nn.Module):
         output_detach = torch.zeros_like(output)
         pred_corners_prev = 0.0
         ref_points_initial = pre_logits = pre_bboxes = None
-        logits_l, bboxes_l, corners_l, refs_l = [], [], [], []
+        logits_l, bboxes_l, corners_l, refs_l, queries_l = [], [], [], [], []
         for i in range(self.num_layers if train else self.eval_idx + 1):
             query_pos = self.query_pos_head(ref_points).clamp(-10.0, 10.0)
             output = self.decoder.layers[i](output, ref_points, value, spatial_shapes,
                                             attn_mask=attn_mask, query_pos_embed=query_pos)
+            if self.enable_mask_head and (train or i == self.eval_idx):
+                queries_l.append(output)
             if i == 0:
                 pre_delta = self.pre_bbox_head(output)
                 pre_bboxes = torch.sigmoid(pre_delta + inverse_sigmoid(ref_points))
@@ -312,31 +359,54 @@ class DFINETransformer(nn.Module):
             ref_points = inter_ref_bbox.detach()
             output_detach = output.detach()
 
-        if not train:
-            return {"pred_logits": logits_l[-1], "pred_boxes": bboxes_l[-1]}
-
         # ---- split the denoising slots off (reference :975-986)
         def split(x):
             return x[:, :num_dn], x[:, num_dn:]
+
+        # ---- mask head (reference :925-1005): per kept layer, its queries'
+        # embeddings against the mask features
+        masks_l = dn_masks_l = None
+        if self.enable_mask_head:
+            mask_feat = self.mask_decoder(feats)  # [B, mask_dim, Hm, Wm]
+            Hm, Wm = mask_feat.shape[2:]
+            masks_l = [torch.matmul(self.mask_head(h) * self.mask_dim ** -0.5,
+                                    mask_feat.flatten(2)).reshape(B, -1, Hm, Wm)
+                       for h in queries_l]
+            dn_masks_l, masks_l = tuple(zip(*[split(m) for m in masks_l]))
+
+        if not train:
+            out = {"pred_logits": logits_l[-1], "pred_boxes": bboxes_l[-1]}
+            if masks_l is not None:
+                out["pred_masks"] = torch.sigmoid(masks_l[-1])
+            return out
 
         (dn_logits, logits), (dn_bboxes, bboxes), (dn_corners, corners), (dn_refs, refs) = (
             tuple(zip(*[split(t) for t in ts])) for ts in (logits_l, bboxes_l, corners_l, refs_l))
         dn_pre_logits, pre_logits = split(pre_logits)
         dn_pre_bboxes, pre_bboxes = split(pre_bboxes)
 
-        def sets(lg, bx, cr, rf):
-            return [{"pred_logits": l, "pred_boxes": b, "pred_corners": c, "ref_points": r,
-                     "teacher_corners": cr[-1], "teacher_logits": lg[-1]}
-                    for l, b, c, r in zip(lg, bx, cr, rf)]
+        def sets(lg, bx, cr, rf, ms):
+            out = [{"pred_logits": l, "pred_boxes": b, "pred_corners": c, "ref_points": r,
+                    "teacher_corners": cr[-1], "teacher_logits": lg[-1]}
+                   for l, b, c, r in zip(lg, bx, cr, rf)]
+            for o, m in zip(out, ms or ()):
+                o["pred_masks"] = m
+            return out
 
         out = {"pred_logits": logits[-1], "pred_boxes": bboxes[-1],
                "pred_corners": corners[-1], "ref_points": refs[-1],
                "up": 0.5, "reg_scale": self.reg_scale,
-               "aux_outputs": sets(logits, bboxes, corners, refs)[:-1],
+               "aux_outputs": sets(logits, bboxes, corners, refs, masks_l)[:-1],
                "pre_outputs": {"pred_logits": pre_logits, "pred_boxes": pre_bboxes},
                "enc_aux_outputs": enc_aux}
+        if masks_l is not None:
+            out["pred_masks"] = masks_l[-1]
         if use_dn:
-            out["dn_outputs"] = sets(dn_logits, dn_bboxes, dn_corners, dn_refs)
+            # the dn sets carry masks on all but the last, which is dn_pred_masks
+            out["dn_outputs"] = sets(dn_logits, dn_bboxes, dn_corners, dn_refs,
+                                     dn_masks_l and dn_masks_l[:-1])
+            if dn_masks_l is not None:
+                out["dn_pred_masks"] = dn_masks_l[-1]
             out["dn_pre_outputs"] = {"pred_logits": dn_pre_logits, "pred_boxes": dn_pre_bboxes}
             out["dn_meta"] = {"num_dn": num_dn, "num_group": num_group,
                               "positive": dn["positive"], "valid": dn["valid"],

@@ -39,8 +39,6 @@ class DFINE(nn.Module):
             use_encoder_idx=e.use_encoder_idx, num_encoder_layers=e.num_encoder_layers,
             pe_temperature=e.pe_temperature, expansion=e.expansion, depth_mult=e.depth_mult,
             act=e.act)
-        if d.enable_mask_head:
-            raise NotImplementedError("the mask head is not ported yet")
         self.decoder = DFINETransformer(
             num_classes=num_classes, hidden_dim=d.hidden_dim, num_queries=d.num_queries,
             feat_channels=d.feat_channels, feat_strides=d.feat_strides,
@@ -50,7 +48,8 @@ class DFINE(nn.Module):
             label_noise_ratio=d.label_noise_ratio, box_noise_scale=d.box_noise_scale,
             eval_idx=d.eval_idx, eps=d.eps, reg_max=d.reg_max, reg_scale=d.reg_scale,
             cross_attn_method=d.cross_attn_method,
-            query_select_method=d.query_select_method)
+            query_select_method=d.query_select_method,
+            enable_mask_head=d.enable_mask_head, mask_dim=d.mask_dim)
 
         if b.freeze_norm:  # reference FrozenBatchNorm2d in the backbone
             for m in self.backbone.modules():
@@ -88,7 +87,8 @@ def apply_torch_default_init(model: DFINE, generator: torch.Generator) -> DFINE:
     U(+-1/sqrt(fan_in)) for weights and biases, xavier_uniform for the decoder
     FFNs, enc_output.proj, query_pos_head layers 0-1 and the 1x1 input_proj
     convs, xavier_uniform on the packed MHA in_proj with zero in_proj and
-    out_proj biases. Norms keep (1, 0); the heads' special values come from
+    out_proj biases, kaiming_normal (fan_out) for the MaskDecoder's up_conv.
+    Norms keep (1, 0); the heads' special values come from
     apply_reference_init."""
 
     def uniform_(t, bound):
@@ -97,11 +97,13 @@ def apply_torch_default_init(model: DFINE, generator: torch.Generator) -> DFINE:
     def fan_in(w):
         return w.shape[1] * int(np.prod(w.shape[2:])) if w.ndim == 4 else w.shape[1]
 
-    def xavier_(w):
-        fi = fan_in(w)
-        fo = w.shape[0] * (int(np.prod(w.shape[2:])) if w.ndim == 4 else 1)
-        uniform_(w, math.sqrt(6.0 / (fi + fo)))
+    def fan_out(w):
+        return w.shape[0] * int(np.prod(w.shape[2:]))
 
+    def xavier_(w):
+        uniform_(w, math.sqrt(6.0 / (fan_in(w) + fan_out(w))))
+
+    up_conv = model.decoder.mask_decoder.up_conv if model.decoder.enable_mask_head else None
     xavier = set()
     for layer in model.decoder.decoder.layers:
         xavier |= {id(layer.linear1), id(layer.linear2)}
@@ -115,6 +117,9 @@ def apply_torch_default_init(model: DFINE, generator: torch.Generator) -> DFINE:
         if isinstance(m, MultiHeadAttention):
             uniform_(m.in_proj_weight, math.sqrt(6.0 / (4.0 * m.embed_dim)))
             m.in_proj_bias.zero_()
+        elif m is up_conv:  # reference dfine_decoder.py:351
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           * math.sqrt(2.0 / fan_out(m.weight)))
         elif isinstance(m, (nn.Linear, nn.Conv2d)):
             if id(m) in xavier:
                 xavier_(m.weight)

@@ -25,8 +25,11 @@ def topk_detections(
     pred_boxes: torch.Tensor,   # [B, Q, 4] normalized cxcywh
     num_top: int = 300,
     out_size: Optional[Tuple[int, int]] = None,  # (H, W) to scale boxes to
+    pred_masks: Optional[torch.Tensor] = None,   # [B, Q, Hm, Wm]
 ) -> Dict[str, torch.Tensor]:
-    """Flat top-K over queries x classes (reference export.py:60-99)."""
+    """Flat top-K over queries x classes (reference export.py:60-99); with
+    pred_masks, "masks" [B, K, Hm, Wm] are the masks of the K detections'
+    queries (f32)."""
     B, Q, C = pred_logits.shape
     flat = torch.sigmoid(pred_logits.float()).reshape(B, Q * C)
     top_scores, top_idx = torch.topk(flat, min(num_top, Q * C), dim=1)
@@ -36,7 +39,10 @@ def topk_detections(
     if out_size is not None:
         H, W = out_size
         boxes = box_cxcywh_to_xyxy_scaled(boxes, W, H)
-    return {"labels": labels, "boxes": boxes, "scores": top_scores}
+    out = {"labels": labels, "boxes": boxes, "scores": top_scores}
+    if pred_masks is not None:
+        out["masks"] = pred_masks[torch.arange(B, device=q_idx.device)[:, None], q_idx].float()
+    return out
 
 
 def classwise_nms_padded(boxes: torch.Tensor, scores: torch.Tensor, labels: torch.Tensor,

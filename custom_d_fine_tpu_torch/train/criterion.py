@@ -10,18 +10,21 @@ replaced by gathers and scatters with validity masks, as in the JAX package,
 so shapes stay static and nothing syncs but the matcher's one copy. FGL
 targets are computed once per index set and reused across layers (the
 reference points are the layer-0 pre boxes for every layer); num_pos_neg of
-the final layer's DDF carries to the aux and dn layers, as in JAX. The mask
-losses come with the mask head.
+the final layer's DDF carries to the aux and dn layers, as in JAX. With
+"masks" in the losses, the sets that carry pred_masks (final, aux, the dn
+sets but the last, and dn_pred_masks as "_dn_final") add the box-cropped BCE
+and Dice mask losses (reference loss_masks :504-556).
 
-Every normaliser (num_boxes, the GO and denoising counts, the DDF counts) is
-the count of the global batch: under torch.distributed it is summed over the
-processes (parallel/dist.py:global_sum), as the JAX package's sharded sum is
-global. Each process's losses are then its share of the global batch's, and
+Every normaliser (num_boxes, the GO and denoising counts, the DDF counts,
+each mask set's matched count) is the count of the global batch: under
+torch.distributed it is summed over the processes
+(parallel/dist.py:global_sum), as the JAX package's sharded sum is global. Each process's losses are then its share of the global batch's, and
 the shares add up to them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -201,14 +204,64 @@ def loss_local(outputs, targets, match: Match, num_boxes, reg_max: int, fgl_targ
     return losses, fgl_targets, num_pos_neg
 
 
+def with_mask_losses(cfg: CriterionConfig) -> CriterionConfig:
+    """The criterion of a model with the mask head: "masks" joins the losses,
+    as the reference's build_loss adds it for segment (dfine.py:73-84; JAX
+    trainer.py:208-211)."""
+    if "masks" in cfg.losses:
+        return cfg
+    return dataclasses.replace(cfg, losses=tuple(cfg.losses) + ("masks",))
+
+
+def _inside_box_mask(boxes: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """[..., M, 4] xyxy in mask pixels -> [..., M, H, W] {0,1} crop mask
+    (reference _cropped_bce_loss :353-369)."""
+    ys = torch.arange(H, dtype=torch.float32, device=boxes.device)[:, None]
+    xs = torch.arange(W, dtype=torch.float32, device=boxes.device)[None, :]
+    x1, y1, x2, y2 = (boxes[..., i, None, None] for i in range(4))
+    return (((xs >= x1) & (xs < x2)) & ((ys >= y1) & (ys < y2))).float()
+
+
+def loss_masks(outputs, targets, match: Match, num_masks) -> Dict[str, torch.Tensor]:
+    """Box-cropped BCE + Dice on the matched masks, the BCE normalised by box
+    area (reference loss_masks :504-556, _cropped_bce_loss :335-386,
+    _cropped_dice_loss :404-450; JAX criterion.py:267-302). targets["masks"]
+    [B, G, Hm, Wm] are at the prediction's resolution. num_masks: the global
+    batch's count of valid matches of `match`, which the JAX package sums
+    itself. Only the matched queries are cast to f32 (JAX casts all of
+    pred_masks first: the same function, in less memory)."""
+    if outputs.get("pred_masks") is None or targets.get("masks") is None:
+        return {}
+    pm = outputs["pred_masks"]
+    Hm, Wm = pm.shape[-2:]
+    rows = torch.arange(pm.shape[0], device=pm.device)[:, None]
+    pred = pm[rows, match["q"].clamp(0, pm.shape[1] - 1)].float()  # [B, M, Hm, Wm]
+    tgt = targets["masks"][rows, match["g"].clamp(0, targets["masks"].shape[1] - 1)].float()
+    v = match["valid"].float()
+
+    cx, cy, w, h = _gather_q(targets["boxes"], match["g"]).unbind(-1)  # normalised cxcywh
+    x1 = ((cx - w / 2) * Wm).clamp(0, Wm - 1)
+    y1 = ((cy - h / 2) * Hm).clamp(0, Hm - 1)
+    x2 = ((cx + w / 2) * Wm).clamp(1, Wm)
+    y2 = ((cy + h / 2) * Hm).clamp(1, Hm)
+    inside = _inside_box_mask(torch.stack([x1, y1, x2, y2], -1), Hm, Wm)
+    area = ((x2 - x1) * (y2 - y1)).clamp(min=1.0)
+
+    per_inst_bce = (_bce_logits(pred, tgt) * inside).sum((-2, -1)) / area  # [B, M]
+    prob, tgt = torch.sigmoid(pred) * inside, tgt * inside
+    inter = (prob * tgt).sum((-2, -1))
+    denom = prob.sum((-2, -1)) + tgt.sum((-2, -1)) + 1e-6
+    dice = 1.0 - (2.0 * inter + 1e-6) / denom
+    return {"loss_mask_bce": (per_inst_bce * v).sum() / num_masks,
+            "loss_mask_dice": (dice * v).sum() / num_masks}
+
+
 class DFINECriterion:
     """Callable on the train-mode model outputs and the padded targets
     {labels [B,G], boxes [B,G,4] cxcywh, valid [B,G], optional image_valid [B]};
     returns the weighted loss terms, NaN scrubbed to 0 (reference :776)."""
 
     def __init__(self, cfg: CriterionConfig, matcher_cfg: MatcherConfig, num_classes: int):
-        if "masks" in cfg.losses:
-            raise NotImplementedError("the mask losses come with the mask head")
         self.cfg, self.mcfg, self.num_classes = cfg, matcher_cfg, num_classes
 
     def _dn_match(self, dn_meta, targets) -> Match:
@@ -226,11 +279,13 @@ class DFINECriterion:
         return {"q": q_idx[None].expand(B, -1), "g": dn_meta["gt_index"].long().repeat(1, num_group),
                 "valid": valid}
 
-    def _terms(self, out, targets, match, match_go, n, n_go, suffix, add, local=None):
-        """Add the cfg.losses terms of one output set: vfl on `match`, boxes and
-        local on `match_go`. `local` is the state [fgl targets, num_pos_neg,
-        is_dn, the global DDF counts] that loss_local carries from set to set,
-        or None to skip it.
+    def _terms(self, out, targets, match, match_go, n, n_go, suffix, add, local=None,
+               n_mask=None):
+        """Add the cfg.losses terms of one output set: vfl and masks on
+        `match`, boxes and local on `match_go`. `local` is the state [fgl
+        targets, num_pos_neg, is_dn, the global DDF counts] that loss_local
+        carries from set to set, or None to skip it; n_mask, the normaliser of
+        the mask losses, or None for a set without masks.
         As in the JAX package, "focal" is a function of this module that the
         criterion does not dispatch."""
         cfg, nc = self.cfg, self.num_classes
@@ -245,6 +300,8 @@ class DFINECriterion:
                                               npn, is_dn=is_dn, counts=counts)
                 add(ld, suffix)
                 local[:2] = [fgl, npn_out]
+            elif loss == "masks" and n_mask is not None:
+                add(loss_masks(out, targets, match, n_mask), suffix)
 
     def __call__(self, outputs: Dict[str, object], targets: Dict[str, torch.Tensor]):
         wd = self.cfg.weight_dict
@@ -269,6 +326,7 @@ class DFINECriterion:
             return {"q": a, "g": g_base, "valid": (a >= 0) & targets["valid"]}
 
         n_aux = len(aux_sets)
+        matches = [to_match(assign[i]) for i in range(1 + n_aux)]  # final, aux
         match_go = {"q": torch.arange(Q, device=dev)[None].expand(B, Q), "g": go_g,
                     "valid": go_valid}
         has_dn = "dn_outputs" in outputs and outputs.get("dn_meta") is not None
@@ -277,26 +335,36 @@ class DFINECriterion:
             dn_positive = outputs["dn_meta"]["positive"]
             if "image_valid" in targets:
                 dn_positive = dn_positive & targets["image_valid"][:, None]
+        masks = ("masks" in self.cfg.losses and outputs.get("pred_masks") is not None
+                 and targets.get("masks") is not None)
 
         # every normaliser of the global batch, in one sum over the processes
         # (parallel/dist.py): num_boxes, the GO count, the DDF counts on the GO
-        # matches, and with CDN the denoising count and its DDF counts
-        counts = [targets["valid"].sum().float()[None], go_valid.sum().float()[None],
-                  _ddf_counts(match_go, targets, Q)]
+        # matches; with CDN the denoising count and its DDF counts; with the
+        # mask losses the valid matches of the final and aux sets, and of the
+        # dn sets
+        counts = {"boxes": targets["valid"].sum().float()[None],
+                  "go": go_valid.sum().float()[None], "ddf": _ddf_counts(match_go, targets, Q)}
         if has_dn:
-            counts += [dn_positive.sum().float()[None],
-                       _ddf_counts(match_dn, targets, dn_positive.shape[1])]
-        counts = global_sum(torch.cat(counts))
-        num_boxes, num_boxes_go = counts[:2].clamp(min=1.0).unbind()
+            counts["dn"] = dn_positive.sum().float()[None]
+            counts["ddf_dn"] = _ddf_counts(match_dn, targets, dn_positive.shape[1])
+        if masks:
+            counts["mask"] = torch.stack([m["valid"].sum().float() for m in matches])
+            if has_dn:
+                counts["mask_dn"] = match_dn["valid"].sum().float()[None]
+        total = global_sum(torch.cat(list(counts.values())))
+        counts = dict(zip(counts, total.split([len(c) for c in counts.values()])))
+        num_boxes, num_boxes_go = torch.cat([counts["boxes"], counts["go"]]).clamp(min=1.0)
+        n_mask = counts["mask"].clamp(min=1.0) if masks else [None] * len(matches)
         extra = {"up": outputs["up"], "reg_scale": outputs["reg_scale"]}
 
         # fgl targets of the GO matches, num_pos_neg, is_dn, DDF counts
-        local = [None, None, False, counts[2:5]]
-        self._terms(outputs, targets, to_match(assign[0]), match_go, num_boxes, num_boxes_go,
-                    "", add, local)
+        local = [None, None, False, counts["ddf"]]
+        self._terms(outputs, targets, matches[0], match_go, num_boxes, num_boxes_go,
+                    "", add, local, n_mask[0])
         for i, aux in enumerate(aux_sets):
-            self._terms({**aux, **extra}, targets, to_match(assign[1 + i]), match_go, num_boxes,
-                        num_boxes_go, f"_aux_{i}", add, local)
+            self._terms({**aux, **extra}, targets, matches[1 + i], match_go, num_boxes,
+                        num_boxes_go, f"_aux_{i}", add, local, n_mask[1 + i])
         self._terms(outputs["pre_outputs"], targets, to_match(assign[1 + n_aux]), match_go,
                     num_boxes, num_boxes_go, "_pre", add)
         for i, enc in enumerate(enc_sets):
@@ -305,11 +373,15 @@ class DFINECriterion:
 
         # ---- denoising (reference :727-773): static matches, own normaliser
         if has_dn:
-            n_dn = counts[5].clamp(min=1.0)
-            local_dn = [None, local[1], True, counts[6:9]]
+            n_dn = counts["dn"][0].clamp(min=1.0)
+            n_mask_dn = counts["mask_dn"][0].clamp(min=1.0) if masks else None
+            local_dn = [None, local[1], True, counts["ddf_dn"]]
             for i, dn_out in enumerate(outputs["dn_outputs"]):
                 self._terms({**dn_out, **extra}, targets, match_dn, match_dn, n_dn, n_dn,
-                            f"_dn_{i}", add, local_dn)
+                            f"_dn_{i}", add, local_dn, n_mask_dn)
+            if masks and outputs.get("dn_pred_masks") is not None:
+                add(loss_masks({"pred_masks": outputs["dn_pred_masks"]}, targets, match_dn,
+                               n_mask_dn), "_dn_final")
             if "dn_pre_outputs" in outputs:
                 self._terms(outputs["dn_pre_outputs"], targets, match_dn, match_dn, n_dn, n_dn,
                             "_dn_pre", add)

@@ -28,7 +28,7 @@ from ..models.denoising import dn_layout, draw_dn_noise
 from ..models.dfine import DFINE, build_model
 from ..ops.postprocess import topk_detections
 from ..parallel.dist import batch_rows
-from .criterion import DFINECriterion
+from .criterion import DFINECriterion, with_mask_losses
 from .ema import ema_update
 from .optim import Optimizer
 
@@ -59,7 +59,8 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
 
     batch = {"images": [B,H,W,3] uint8 (the wire format; /255 here) or
     floating in [0,1] (the model's dtype), "labels": [B,G] int, "boxes": [B,G,4] f32 cxcywh normalised,
-    "valid": [B,G] bool, optional "image_valid": [B] bool}, on the model's
+    "valid": [B,G] bool, optional "image_valid": [B] bool, and for the mask
+    head "masks": [B,G,Hm,Wm] {0,1} at the mask resolution}, on the model's
     device. `generator` (a CPU torch.Generator) draws the denoising noise.
     metrics: total_loss, the pre-clip grad_norm and every loss term (0-d
     tensors on the device; nothing here waits for the card except the
@@ -75,7 +76,7 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
         if images.dtype == torch.uint8:  # the wire format
             images = images.float() / 255.0
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        targets = {k: batch[k] for k in ("labels", "boxes", "valid", "image_valid")
+        targets = {k: batch[k] for k in ("labels", "boxes", "valid", "image_valid", "masks")
                    if k in batch}
         dec = model.decoder
         draws = None
@@ -106,8 +107,9 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
 def make_eval_step(use_ema: bool = True, bf16: bool = False
                    ) -> Callable[[TrainState, torch.Tensor], Dict[str, torch.Tensor]]:
     """eval_step(state, images_u8 [B,H,W,3]) -> top-300 detections
-    {labels [B,K] int32, boxes [B,K,4] f32 xyxy pixels, scores [B,K] f32} of
-    the EMA weights (the model's own without an EMA), in eval mode, under the
+    {labels [B,K] int32, boxes [B,K,4] f32 xyxy pixels, scores [B,K] f32,
+    and with the mask head masks [B,K,Hm,Wm] f32 probabilities} of the EMA
+    weights (the model's own without an EMA), in eval mode, under the
     training's autocast and MSDA value dtype. Counterpart of the JAX
     package's make_eval_step (train_step.py:172) and the Trainer's _eval
     closure (trainer.py:266-277); reference train.py:396-400."""
@@ -124,7 +126,7 @@ def make_eval_step(use_ema: bool = True, bf16: bool = False
             else:
                 out = model(x, **kw)
         return topk_detections(out["pred_logits"].float(), out["pred_boxes"].float(), 300,
-                               tuple(images_u8.shape[1:3]))
+                               tuple(images_u8.shape[1:3]), pred_masks=out.get("pred_masks"))
 
     return eval_step
 
@@ -139,7 +141,9 @@ def build_training(size: Union[str, ModelConfig] = "m", num_classes: int = 80,
                    ) -> Tuple[Callable, TrainState]:
     """Registry size (or a ModelConfig) -> (step_fn, state) on `device`.
     Random weights from `seed` unless `state_dict` (and `ema`) are given, e.g.
-    from utils/weights.py. bf16=True is the Trainer's default compute dtype;
+    from utils/weights.py. A config with the mask head trains the mask losses
+    too, as the Trainer's task "segment" does. bf16=True is the Trainer's
+    default compute dtype;
     bf16 on the CPU is refused (the CPU copy is the f32 reference)."""
     device = resolve_device(device)
     if bf16 and device.type != "cuda":
@@ -149,7 +153,8 @@ def build_training(size: Union[str, ModelConfig] = "m", num_classes: int = 80,
     if state_dict is not None:
         model.load_state_dict(state_dict)
     model = model.to(device).to(memory_format=torch.channels_last).train()
-    criterion = DFINECriterion(cfg.criterion, cfg.matcher, num_classes=num_classes)
+    crit_cfg = with_mask_losses(cfg.criterion) if cfg.decoder.enable_mask_head else cfg.criterion
+    criterion = DFINECriterion(crit_cfg, cfg.matcher, num_classes=num_classes)
     optimizer = Optimizer(model, cfg, base_lr=base_lr, backbone_lr=backbone_lr,
                           total_steps=total_steps, b_accum_steps=b_accum_steps, **optim_kw)
     state = create_train_state(model, optimizer, use_ema=use_ema, ema=ema)

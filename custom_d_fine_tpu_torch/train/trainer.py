@@ -23,8 +23,11 @@ Not ported, because they work around the TPU or its host:
 steps_per_dispatch / make_train_multi_step (a lax.scan over K steps that
 hides the TPU host's dispatch), _precompile_multiscale (the eager port has
 nothing to compile per canvas size), orbax, and _put_global / _shard_batch /
-_pad_to_mesh (each process holds its own rows; nothing pads to a mesh). The
-mask head is not ported yet: task "segment" raises.
+_pad_to_mesh (each process holds its own rows; nothing pads to a mesh).
+
+Task "segment" builds the mask head, trains the mask losses, chooses the
+model by the mask mAPs and evaluates the predicted and GT masks as RLE in
+the original frame.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+import cv2
 import numpy as np
 import torch
 
@@ -45,7 +49,9 @@ from ..data.letterbox import unletterbox_boxes_abs
 from ..data.loader import Loader
 from ..data.mosaic import MosaicConfig
 from ..deploy.serving import resolve_device
+from ..eval.rle import masks_to_rle
 from ..eval.validator import Validator
+from ..infer.model import masks_to_frame
 from ..models.dfine import build_model
 from ..parallel import dist
 from ..utils.checkpoint import (
@@ -55,7 +61,7 @@ from ..utils.checkpoint import (
     remap_obj365_head,
 )
 from ..utils.logging import logger
-from .criterion import DFINECriterion
+from .criterion import DFINECriterion, with_mask_losses
 from .optim import Optimizer
 from .train_step import create_train_state, make_eval_step, make_train_step
 
@@ -73,6 +79,14 @@ def unletterbox_or_resize_boxes(boxes_canvas_xyxy, lb: Dict, orig_h: int, orig_w
     return b
 
 
+def _gt_masks_rle(masks: np.ndarray, oh: int, ow: int) -> List[Dict]:
+    """GT masks at the mask resolution -> RLE in the original frame, resized
+    and binarised as the predictions are (JAX trainer.py:619-630)."""
+    gms = [(cv2.resize(m.astype(np.float32), (ow, oh), interpolation=cv2.INTER_LINEAR)
+            > 0.5).astype(np.uint8) for m in masks]
+    return masks_to_rle(np.stack(gms)) if gms else []
+
+
 class Trainer:
     """cfg: the experiment dict of utils/config.py:load_config (any dict of
     that layout). Runs on the card unless cfg["train"]["device"] says "cpu";
@@ -82,9 +96,7 @@ class Trainer:
         self.cfg = cfg
         t = cfg["train"]
         self.task = cfg.get("task", "detect")
-        if self.task == "segment":
-            raise NotImplementedError("task 'segment' needs the mask head, which the port has "
-                                      "not ported yet (ROADMAP.md, slice 5)")
+        self.enable_mask_head = self.task == "segment"
         self.device = resolve_device(t.get("device"))
         self.bf16 = t.get("dtype") == "bfloat16"
         if self.bf16 and self.device.type != "cuda":
@@ -102,6 +114,9 @@ class Trainer:
         self.no_mosaic_epochs = t["mosaic_augs"]["no_mosaic_epochs"]
         self.use_ema = t.get("use_ema", True)
         self.decision_metrics = list(t.get("decision_metrics", ["f1"]))
+        if self.enable_mask_head:
+            self.decision_metrics = [m + "_mask" if m.startswith("mAP_50") else m
+                                     for m in self.decision_metrics]
         self.is_main = dist.is_main_process()
         self.path_to_save = Path(t["path_to_save"])
         if self.is_main:
@@ -123,7 +138,8 @@ class Trainer:
 
         # ---- data
         self.model_cfg = model_cfg_override or get_model_config(
-            cfg["model_name"], max_gt=int(t.get("max_gt", 100)))
+            cfg["model_name"], enable_mask_head=self.enable_mask_head,
+            max_gt=int(t.get("max_gt", 100)))
         augs = dict(t["augs"])
         self.loader = Loader(
             root_path=Path(t["data_path"]),
@@ -143,6 +159,7 @@ class Trainer:
             multiscale_deltas=tuple(augs.get("multiscale_deltas", (-64, -32, 32, 64))),
             seed=t.get("seed", 42),
             label_to_name=self.label_to_name,
+            # GT masks at the mask head's resolution: the finest level's stride / 2
             mask_downsample=self.model_cfg.encoder.feat_strides[0] // 2,
             debug_img_path=(t.get("debug_img_path")
                             if t.get("debug_img_processing") else None),
@@ -164,6 +181,8 @@ class Trainer:
         model = model.to(self.device).to(memory_format=torch.channels_last).train()
 
         crit_cfg = self.model_cfg.criterion
+        if self.enable_mask_head:
+            crit_cfg = with_mask_losses(crit_cfg)
         if t.get("label_smoothing", 0.0):
             crit_cfg = dataclasses.replace(crit_cfg,
                                            label_smoothing=float(t["label_smoothing"]))
@@ -208,7 +227,7 @@ class Trainer:
 
     def _to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(batch[k]).to(self.device)
-                for k in ("images", "labels", "boxes", "valid")}
+                for k in ("images", "labels", "boxes", "valid", "masks") if k in batch}
 
     def train(self) -> List[Dict]:
         t0 = time.time()
@@ -321,10 +340,12 @@ class Trainer:
                 scores = dets["scores"][b]
                 labels = dets["labels"][b]
                 keep = scores >= self.conf_thresh
-                preds.append({
-                    "boxes": boxes[keep], "labels": labels[keep], "scores": scores[keep],
-                    "all_boxes": boxes, "all_labels": labels, "all_scores": scores,
-                })
+                pred = {"boxes": boxes[keep], "labels": labels[keep], "scores": scores[keep],
+                        "all_boxes": boxes, "all_labels": labels, "all_scores": scores}
+                if self.enable_mask_head:  # JAX trainer.py:586-605; reference train.py:404-434
+                    pred["masks_rle"] = masks_to_rle(
+                        masks_to_frame(dets["masks"][b][keep], boxes[keep], oh, ow))
+                preds.append(pred)
 
                 v = batch["valid"][b]
                 gb = batch["boxes"][b][v]  # normalized cxcywh on canvas
@@ -336,13 +357,14 @@ class Trainer:
                     xyxy = unletterbox_or_resize_boxes(gt_canvas, lb, oh, ow)
                 else:
                     gt_canvas = xyxy = np.zeros((0, 4), np.float32)
-                gts.append({"boxes": xyxy, "labels": batch["labels"][b][v]})
+                gt = {"boxes": xyxy, "labels": batch["labels"][b][v]}
+                if self.enable_mask_head and "masks" in batch:
+                    gt["masks_rle"] = _gt_masks_rle(batch["masks"][b][v], oh, ow)
+                gts.append(gt)
 
                 if visualize and len(preds) <= 6:
                     # GT | pred side by side in CANVAS coordinates
                     # (reference visualizes the first eval batches, train.py:418-426)
-                    import cv2
-
                     from ..utils.vis import save_gt_pred_pair
 
                     img = cv2.cvtColor(np.asarray(batch["images"][b]), cv2.COLOR_RGB2BGR)

@@ -12,7 +12,8 @@ port's modules carry the original torch repo's state_dict names, so:
   - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
     (+ num_batches_tracked = 0); the BN module is `bn` inside the backbone's
     ConvBNAct and `norm` elsewhere, as in the original repo;
-  - LayerNorm scale -> weight; a deploy VGGBlock's `fused` conv -> `conv`.
+  - LayerNorm and GroupNorm scale -> weight; the MaskDecoder's lateral_i
+    and gn_i -> lateral.i and bn.i; a deploy VGGBlock's `fused` conv -> `conv`.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ _SEGMENTS = [
     (r"decoder_layers_(\d+)", r"decoder.layers.\1"),
     (r"lqe_layers_(\d+)", r"decoder.lqe_layers.\1"),
     (r"enc_output_(proj|norm)", r"enc_output.\1"),
+    (r"lateral_(\d+)", r"lateral.\1"),  # MaskDecoder
+    (r"gn_(\d+)", r"bn.\1"),
     (r"fused", "conv"),
 ]
 
@@ -94,7 +97,7 @@ def flax_to_torch(params: Mapping, batch_stats: Mapping, prefix: str = "") -> Di
             sd[f"{name}.weight"] = val.transpose(3, 2, 0, 1) if val.ndim == 4 else val.T
         elif leaf == "embedding":
             sd[f"{name}.weight"] = val
-        elif leaf == "scale" and mod[-1] != "lab":  # LayerNorm
+        elif leaf == "scale" and mod[-1] != "lab":  # LayerNorm, GroupNorm
             sd[f"{name}.weight"] = val
         else:  # biases, LAB scale/bias
             sd[f"{name}.{leaf}"] = val

@@ -373,6 +373,46 @@ def test_eval_step_matches_the_cpu_copy(dev, bf16):
 
 
 
+def test_segment_serving_matches_the_cpu_copy(dev):
+    """The segment model's serving forward (registry size s with the mask
+    head, 320x320, bs2) on the card against a CPU copy, all f32 (TF32 off,
+    exact stem, f32 MSDA value): scores at atol 1e-4; labels, boxes (atol
+    1e-4 x 320 pixels) and the top-K masks (probabilities, atol 1e-4) where
+    a score stands 1e-4 from its neighbours. Conv kernels x sqrt(6) so that
+    query selection does not tie."""
+    from custom_d_fine_tpu_torch.configs import get_model_config
+    from custom_d_fine_tpu_torch.deploy.reparam import convert_to_deploy
+    from custom_d_fine_tpu_torch.deploy.serving import make_serving_forward
+    from custom_d_fine_tpu_torch.models.dfine import build_model
+
+    model = build_model(get_model_config("s", enable_mask_head=True), num_classes=80, seed=4)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(6 ** 0.5)
+    convert_to_deploy(model)
+    x = torch.randint(0, 256, (2, 320, 320, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(9))
+    want = make_serving_forward(copy.deepcopy(model), (320, 320))(x)
+    got = make_serving_forward(copy.deepcopy(model).to(dev), (320, 320), msda_value_dtype=None,
+                               stem_fast=False)(x.to(dev))
+    got = {k: v.cpu() for k, v in got.items()}
+    assert got["masks"].shape == (2, 300, 80, 80) and got["masks"].dtype == torch.float32
+    torch.testing.assert_close(got["scores"], want["scores"], rtol=0, atol=1e-4)
+    for b in range(2):
+        keep = torch.ones(300, dtype=torch.bool)
+        for s in (got["scores"][b], want["scores"][b]):
+            d = (s[1:] - s[:-1]).abs() > 1e-4
+            keep[:-1] &= d
+            keep[1:] &= d
+        assert keep.sum() >= 5
+        assert torch.equal(got["labels"][b][keep], want["labels"][b][keep])
+        torch.testing.assert_close(got["boxes"][b][keep], want["boxes"][b][keep], rtol=0,
+                                   atol=1e-4 * 320)
+        torch.testing.assert_close(got["masks"][b][keep], want["masks"][b][keep], rtol=0,
+                                   atol=1e-4)
+
+
 def test_profiling_helpers_read_the_card(dev):
     """utils/profiling.py on a matmul: the profiler's device events, the
     trace summary, StepTimer and the memory statistics."""

@@ -31,7 +31,7 @@ from custom_d_fine_tpu.train.ema import ema_update as jema_update
 from custom_d_fine_tpu.train.optim import build_optimizer, label_params as jlabel
 from custom_d_fine_tpu.train.optim import onecycle as jonecycle
 from custom_d_fine_tpu.utils.torch_convert import convert_torch_state
-from custom_d_fine_tpu_torch.models.dfine import build_model as tbuild
+from custom_d_fine_tpu_torch.models.dfine import DFINE, build_model as tbuild
 from custom_d_fine_tpu_torch.train.ema import ema_update
 from custom_d_fine_tpu_torch.train.optim import Optimizer, label_params, onecycle
 from custom_d_fine_tpu_torch.utils.weights import flax_to_torch
@@ -81,7 +81,8 @@ def test_optimizer_groups_match_label_params(tiny_shapes):
             lambda lab, s: np.full(s.shape, codes.index(lab), np.float32),
             jlabel(shapes, jcfg), shapes)
         want = {k: codes[int(v.reshape(-1)[0])] for k, v in flax_to_torch(coded, {}).items()}
-        got = label_params(tbuild(tcfg, NC, seed=0).named_parameters(), tcfg)
+        with torch.device("meta"):  # the names and shapes only: no weights drawn
+            got = label_params(DFINE(tcfg, NC).named_parameters(), tcfg)
         assert set(want) == set(got), sorted(set(want) ^ set(got))[:5]
         assert want == got, [(k, want[k], got[k]) for k in want if want[k] != got[k]][:5]
         assert set(got.values()) >= set(codes[:4])
@@ -125,7 +126,7 @@ def test_optimizer_matches_optax(tiny_shapes, b_accum_steps, freeze_at, name, us
     assert not rep["missed"]
     tx = build_optimizer(params, cfg, b_accum_steps=b_accum_steps, use_scheduler=use_scheduler,
                          **LR)
-    opt_state = jax.jit(tx.init)(params)
+    opt_state = tx.init(params)  # eager: zeros; a jit of it was a compile per case
 
     @jax.jit
     def update(g, opt_state, params):

@@ -24,11 +24,12 @@ import cv2
 
 from custom_d_fine_tpu.cli.infer import infer_folder as jax_infer_folder
 from custom_d_fine_tpu.infer.model import JaxModel
+from custom_d_fine_tpu.models import dfine as jdfine
 from custom_d_fine_tpu_torch.cli.infer import infer_folder
 from custom_d_fine_tpu_torch.configs import get_model_config
 from custom_d_fine_tpu_torch.infer.model import TorchModel
 
-from torch_jax_models import port_weights
+from torch_jax_models import port_weights, shape_only_build_model
 from torch_threads import few_threads  # noqa: F401  (autouse)
 
 IMG = (256, 256)
@@ -39,13 +40,17 @@ CONF = {0: 0.04, 1: 0.045, 2: 0.0, 3: 0.05}  # unnamed classes would take 0.5
 
 @pytest.fixture(scope="module")
 def runtimes(tmp_path_factory):
+    """JaxModel's build_model makes the tree of zeros that its loader fills
+    from the checkpoint, without compiling the init (shape_only_build_model)."""
     cfg = get_model_config("n")
     ema = port_weights(cfg, NC, seed=0)
     raw = port_weights(cfg, NC, seed=1)
     path = tmp_path_factory.mktemp("ckpt") / "model.pt"
     torch.save({"model": raw, "ema": {"module": ema}}, path)
     kw = dict(img_size=IMG, conf_thresh=CONF, nms_iou_thresh=0.1)
-    jm = JaxModel(str(path), "n", NC, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jdfine, "build_model", shape_only_build_model)
+        jm = JaxModel(str(path), "n", NC, **kw)
     tm = TorchModel(str(path), "n", NC, device="cpu", **kw)
     return jm, tm
 
@@ -135,14 +140,19 @@ def test_infer_folder_writes_what_the_jax_cli_writes(runtimes, tmp_path):
 
 
 def test_segment_task_and_yolo_wrapper_raise():
-    """task="segment" raises until the mask head is ported (as the model
-    does); the ultralytics wrapper raises ImportError at construction where
-    ultralytics is missing, as the JAX package's copy does."""
+    """task="segment" builds the mask head (tests/test_torch_segment.py holds
+    the segment runtime against the JAX one) and returns masks in the
+    original frame; the ultralytics wrapper raises ImportError at
+    construction where ultralytics is missing, as the JAX package's copy
+    does."""
     from custom_d_fine_tpu.infer.yolo_model import YOLOModel as JYOLOModel
     from custom_d_fine_tpu_torch.infer.yolo_model import YOLOModel
 
-    with pytest.raises(NotImplementedError, match="mask head"):
-        TorchModel(None, "n", NC, img_size=IMG, task="segment", device="cpu")
+    tm = TorchModel(None, "n", NC, img_size=IMG, task="segment", conf_thresh=0.0,
+                    smoke_test=False, device="cpu")
+    assert tm.model.decoder.enable_mask_head
+    det = tm(_images()[0])[0]
+    assert det["masks"].shape == (len(det["scores"]), 200, 300) and det["masks"].dtype == np.uint8
     for cls in (YOLOModel, JYOLOModel):
         with pytest.raises(ImportError, match="ultralytics"):
             cls("yolo.pt")

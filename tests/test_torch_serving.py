@@ -2,6 +2,9 @@
 the CPU against the JAX package's make_serving_forward(use_fused_stem=False,
 fast_topk=False), which on the CPU runs MSDA through XLA in f32, for every
 registry size and a small 3-level model, on the same uint8 batch of 2.
+The JAX side's raw pred_logits / pred_boxes are the ones its serving
+forward hands to topk_detections (a wrapper passes them out beside the
+detections), so the model is compiled once, inside the serving graph.
 
 Weights: small3 and m take the JAX package's random init (build_model ->
 jax.device_get -> flax_to_torch). n, s, l and x take the port's seeded
@@ -29,7 +32,9 @@ import torch
 
 from custom_d_fine_tpu.configs import registry as jreg
 from custom_d_fine_tpu.deploy.reparam import convert_to_deploy
+from custom_d_fine_tpu.deploy import serving as jserving
 from custom_d_fine_tpu.deploy.serving import make_serving_forward
+from custom_d_fine_tpu.ops.postprocess import topk_detections as jtopk
 from custom_d_fine_tpu.models.dfine import DFINE as JDFINE
 from custom_d_fine_tpu.models.dfine import build_model
 from custom_d_fine_tpu.utils.torch_convert import convert_torch_state
@@ -123,10 +128,15 @@ def test_serving_matches_jax(name):
     else:
         model, variables, sd = _port_init_weights(jcfg, tcfg, img)
     dmodel, dvars = convert_to_deploy(model, variables)
-    fwd = make_serving_forward(dmodel, dvars, img, use_fused_stem=False, fast_topk=False)
-    both = jax.jit(lambda x: (fwd(x), dmodel.apply(dvars, x.astype(jnp.float32) / 255.0,
-                                                   train=False)))
-    jdet, jraw = jax.device_get(both(jnp.asarray(x_u8)))
+
+    def topk_and_raw(pred_logits, pred_boxes, *args, **kw):
+        det = jtopk(pred_logits, pred_boxes, *args, **kw)
+        return det, {"pred_logits": pred_logits, "pred_boxes": pred_boxes}
+
+    with pytest.MonkeyPatch.context() as mp:  # traced with the wrapper
+        mp.setattr(jserving, "topk_detections", topk_and_raw)
+        fwd = make_serving_forward(dmodel, dvars, img, use_fused_stem=False, fast_topk=False)
+        jdet, jraw = jax.device_get(jax.jit(fwd)(jnp.asarray(x_u8)))
 
     fn, tmodel = build_serving(tcfg, 80, img, device="cpu", state_dict=sd)
     xt = torch.from_numpy(x_u8)

@@ -9,8 +9,10 @@ epoch at 160x160, so that its -32 px canvas keeps them covered):
     optimizer state restored exactly), a multiscale epoch, and the training
     loss falling while the tiny model overfits; and early stopping;
   - get_preds_and_gt("val") against the JAX package's Trainer on the same
-    weights (the JAX Trainer's EMA, conv kernels x sqrt(6) so that query
-    selection does not tie, carried over by utils/weights.py), with the
+    weights (the port's seeded init, conv kernels x sqrt(6) so that query
+    selection does not tie, carried into the JAX Trainer's EMA by the JAX
+    package's convert_torch_state; the JAX Trainer builds its model without
+    compiling the init, torch_jax_models.shape_only_build_model), with the
     tolerances of tests/test_torch_serving.py: all top-300 scores at atol
     1e-4, labels and boxes (pixels, atol 1e-4 x 200) where a score stands
     more than 1e-4 from its neighbours; the ground truth exactly;
@@ -27,9 +29,9 @@ from custom_d_fine_tpu.utils.torch_convert import remap_obj365_head as jremap
 from custom_d_fine_tpu_torch.train.trainer import Trainer
 from custom_d_fine_tpu_torch.utils.checkpoint import remap_obj365_head
 from custom_d_fine_tpu_torch.utils.config import load_config
-from custom_d_fine_tpu_torch.utils.weights import flax_to_torch
 
 from helpers import tiny_config
+from torch_jax_models import flax_variables, port_weights, shape_only_build_model
 from torch_threads import few_threads  # noqa: F401  (autouse)
 from test_torch_train_step import port_config
 
@@ -188,19 +190,21 @@ def _robust(scores):
 
 
 def test_get_preds_and_gt_matches_jax(dataset_root, tmp_path):
+    from custom_d_fine_tpu.train import trainer as jtrainer
     from custom_d_fine_tpu.train.trainer import Trainer as JTrainer
     from custom_d_fine_tpu.utils.config import load_config as jload_config
 
     ovr = overrides(dataset_root, tmp_path / "jax_run", **{"train.batch_size": 4})
-    jt = JTrainer(jload_config(overrides=ovr), model_cfg_override=tiny_config())
-    ema = jax.device_get(jt.state.ema)
-    ema["params"] = jax.tree_util.tree_map(lambda a: a * np.sqrt(6.0) if a.ndim == 4 else a,
-                                           ema["params"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrainer, "build_model", shape_only_build_model)
+        jt = JTrainer(jload_config(overrides=ovr), model_cfg_override=tiny_config())
+    sd = port_weights(port_config(tiny_config()), 1)
+    _, ema = flax_variables(tiny_config(), sd, (128, 128), 1)
     jt.state = jt.state._replace(ema=jax.device_put(ema, jt.repl))
     jpreds, jgts = jt.get_preds_and_gt("val", visualize=False)
 
     tt = port_trainer(overrides(dataset_root, tmp_path / "port_run", **{"train.batch_size": 4}))
-    tt.state.model.load_state_dict(flax_to_torch(ema["params"], ema["batch_stats"]))
+    tt.state.model.load_state_dict(sd)
     for k, v in tt.state.model.state_dict().items():
         tt.state.ema[k].copy_(v)
     tpreds, tgts = tt.get_preds_and_gt("val", visualize=False)
