@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's D-FINE-m serving, training, Trainer, deploy and segment paths on one NVIDIA GPU.
+"""Drive the PyTorch port's D-FINE-m serving, training, Trainer, deploy, segment
+and decoder-option paths on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases, one card
     python3 chip_smoke.py --checks-only   # build + kernel checks only
@@ -72,6 +73,22 @@ without printing its final line:
      the frame, inside their boxes; host ms by part; CPU copies), the f32
      artifact through export_and_verify and its launches, and the infer
      CLI's polygon labels.
+  9. decoder options: D-FINE-m with query_select_method "agnostic" or
+     "one2many" or cross_attn_method "discrete", each reached through a
+     ModelConfig (registry "m" with its DecoderConfig replaced), each path
+     with its counters set to 0 just before and read just after: (a)
+     build_serving at bs1 and bs4 (1 fast stem and 4 MSDA launches a
+     forward; discrete 0 MSDA), the detections' checks, the card against
+     CPU copies all f32 (1e-4) and as served against the same modes (2e-3)
+     by the raw outputs query by query in encoder order and by the
+     detections (discrete: flip-aware, DiscreteFlips), bs1 request ms of
+     each beside the default model in two rounds, a bs1 profile of each;
+     (b) build_training at bs16 640^2 bf16 (4 + 4 MSDA launches a step;
+     discrete 0 + 0; every loss term finite; ms/step, peak memory) and one
+     f32 step against a CPU copy for agnostic and discrete; (c) one Trainer
+     epoch with model_cfg_override agnostic (2 steps + 1 eval batch); (d)
+     the discrete serving graph through export_and_verify (its artifact: 1
+     stem, 0 MSDA a call).
 Each profile also gives the device time per launch of each of the port's
 own kernels on that path, wherever it ranks.
 Prints a {"kernels": [...]} line, the card's line, and last
@@ -860,10 +877,12 @@ def train_batch(torch, B, img, g, max_gt, n_gt=12, num_classes=80, masks=False):
     return batch
 
 
-def compare_train_step(torch, report, cfg, key="train_cpu_compare"):
+def compare_train_step(torch, report, cfg, key="train_cpu_compare", flip_aware=False):
     """One f32 step (TF32 off, bs2 at 320^2) on the card and on a CPU copy
     from the same weights, batch and denoising draws. Conv kernels x sqrt(6),
     as in the serving comparison, so that query selection does not tie.
+    flip_aware (a discrete model): the CPU copy follows the card's pixels
+    (DiscreteFlips), and the flips are printed.
     total_loss and each loss term at rtol 1e-4 (atol 1e-6; measured 6.9e-6);
     grad_norm at rtol 1e-3 (measured 1.6e-4) and the update (in units of the
     learning rate of the parameter's group in this step) within
@@ -885,12 +904,16 @@ def compare_train_step(torch, report, cfg, key="train_cpu_compare"):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
+    flips = DiscreteFlips(torch) if flip_aware else None
     for dev in ("cuda", "cpu"):
         step, state = build_training(cfg, 80, device=dev, bf16=False, state_dict=sd,
                                      use_ema=False)
+        hooks = (flips.record if dev == "cuda" else flips.follow)(state.model) if flips else []
         t0 = time.perf_counter()
         state, m = step(state, {k: v.to(dev) for k, v in batch.items()},
                         torch.Generator().manual_seed(7))
+        for h in hooks:
+            h.remove()
         lr_of = {id(p): g["lr"] for g in state.optimizer.adamw.param_groups
                  for p in g["params"]}
         lr = {k: lr_of[id(p)] for k, p in state.model.named_parameters()}
@@ -915,9 +938,12 @@ def compare_train_step(torch, report, cfg, key="train_cpu_compare"):
                              f"0.05 lr, largest {worst:.3f} lr")
     log(f"[train] card (f32, TF32 off) vs CPU: total_loss {mg['total_loss']:.6f} vs "
         f"{mc['total_loss']:.6f}, grad_norm {mg['grad_norm']:.6f} vs {mc['grad_norm']:.6f}; "
-        f"updates: {n_far} of {n_all} elements beyond 0.05 lr, largest {worst:.3f} lr")
+        f"updates: {n_far} of {n_all} elements beyond 0.05 lr, largest {worst:.3f} lr"
+        + (f"; {flips.summary()}" if flips else ""))
     report[key] = {"card": mg, "cpu": mc, "updates_beyond_0.05lr": n_far,
                    "updates_total": n_all, "update_max_diff_lr": worst}
+    if flips:
+        report[key]["flips"] = list(flips.rows)
 
 
 def phase_training(torch, report, batch_size=16, n_warmup=3, n_steps=10):
@@ -1833,6 +1859,469 @@ def phase_segment(torch, report, workdir, card):
     return paths
 
 
+# ---------------------------------------------------------------- phase 9
+OPTIONS = ("agnostic", "one2many", "discrete")
+FLIP_NEAR = 1e-3  # a flip is a rounding: both devices' locations within this (normalised)
+
+
+def option_config(option, model_name="m"):
+    """The registry model with its DecoderConfig replaced: how both packages
+    reach a decoder option (a ModelConfig; no config key names it)."""
+    import dataclasses
+
+    from custom_d_fine_tpu_torch.configs import get_model_config
+
+    cfg = get_model_config(model_name)
+    key = "cross_attn_method" if option == "discrete" else "query_select_method"
+    return dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **{key: option}))
+
+
+def n_msda(cfg):
+    """MSDA kernel launches per forward: one per decoder layer, none for the
+    discrete cross-attention."""
+    return 0 if cfg.decoder.cross_attn_method == "discrete" else cfg.decoder.num_layers
+
+
+class DiscreteFlips:
+    """Card-vs-CPU comparison of a discrete model that is aware of rounding
+    flips: nearest-pixel rounding is discontinuous, so a location that
+    differs between the devices in its last bits may round to the
+    neighbouring pixel. record(card_model) hooks every cross-attention of the
+    card's copy and keeps, call by call, its sampling locations and its
+    pixel indices (computed on the card). follow(cpu_model) hooks the CPU
+    copy: each call computes its own locations and indices, counts the flips
+    against the card's call of the same order, holds each query's change of
+    its cross-attention output to the bound of its flips, the attention
+    weight of each flipped point times the value range of its (level, head)
+    map, and returns the output sampled at the card's pixels. Everything
+    downstream is then held at the all-f32 tolerance. Queries are paired by
+    their locations (within FLIP_NEAR), so a near-tie that orders the
+    encoder's selection otherwise on one device pairs them still."""
+
+    def __init__(self, torch):
+        self.torch, self.card, self.rows = torch, [], []
+
+    @staticmethod
+    def _attn_modules(model):
+        from custom_d_fine_tpu_torch.models.decoder import MSDeformableAttention
+
+        return [m for m in model.modules() if isinstance(m, MSDeformableAttention)]
+
+    @staticmethod
+    def _indices(torch, loc, shapes, points):
+        from custom_d_fine_tpu_torch.ops.deform_attn import discrete_index
+
+        bounds = [0]
+        for p in points:
+            bounds.append(bounds[-1] + p)
+        return torch.cat([discrete_index(loc[:, :, :, a:b], H, W)
+                          for (H, W), a, b in zip(shapes, bounds, bounds[1:])], dim=3)
+
+    def record(self, model):
+        torch = self.torch
+        self.card.clear()
+
+        def hook(m, args, out):
+            query, ref, value, shapes = args
+            with torch.no_grad():
+                loc, _ = m.locations(query, ref)
+                idx = self._indices(torch, loc, shapes, m.num_points)
+            self.card.append((loc.cpu(), idx.cpu()))
+
+        return [m.register_forward_hook(hook) for m in self._attn_modules(model)]
+
+    def follow(self, model):
+        from custom_d_fine_tpu_torch.ops.deform_attn import ms_deform_attn_discrete
+
+        torch = self.torch
+        self.rows.clear()
+
+        def hook(m, args, out):
+            query, ref, value, shapes = args
+            loc_card, idx_card = self.card[len(self.rows)]
+            loc, attn = m.locations(query, ref)
+            idx = self._indices(torch, loc, shapes, m.num_points)
+            # pair each query with the card's query of the same locations: a
+            # near-tie in the encoder's selection may order them otherwise
+            B, Lq = loc.shape[:2]
+            perm = torch.arange(Lq).repeat(B, 1)
+            moved = (loc.detach() - loc_card).abs().flatten(2).amax(-1) > FLIP_NEAR
+            for b, q in moved.nonzero().tolist():
+                d = (loc_card[b] - loc[b, q].detach()).abs().flatten(1).amax(-1)
+                if d.min() > FLIP_NEAR:
+                    raise AssertionError(f"layer {len(self.rows)}: query {q} of image {b} has "
+                                         f"no partner on the card ({d.min().item():.3e})")
+                perm[b, q] = int(d.argmin())
+            rows = torch.arange(B)[:, None]
+            loc_card, idx_card = loc_card[rows, perm], idx_card[rows, perm]
+            flip = idx != idx_card  # [B, Lq, h, P]
+            forced = ms_deform_attn_discrete(
+                value, shapes, torch.where(flip[..., None], loc_card, loc), attn, m.num_points)
+            with torch.no_grad():
+                B, Lq, h, P = attn.shape
+                level = torch.cat([torch.full((p,), i) for i, p in enumerate(m.num_points)])
+                v0, ranges = 0, []
+                for H, W in shapes:  # value range of each (image, level, head) map
+                    v = value[:, v0:v0 + H * W].float()
+                    ranges.append(v.amax((1, 3)) - v.amin((1, 3)))  # [B, h]
+                    v0 += H * W
+                rng = torch.stack(ranges, -1)[:, None, :, level]  # [B, 1, h, P]
+                bound = (attn.float() * flip * rng).sum(-1)  # [B, Lq, h]
+                effect = (out - forced).float().abs().reshape(B, Lq, h, -1).amax(-1)
+                over = effect > bound * (1 + 1e-5) + 1e-6
+                if over.any():
+                    raise AssertionError(f"layer {len(self.rows)}: a flip moved the output "
+                                         f"beyond its bound ({effect[over].max().item():.3e})")
+                self.rows.append({"flips": int(flip.sum()), "reordered": int(moved.sum()),
+                                  "queries": int(flip.any(-1).any(-1).sum()),
+                                  "max_effect": effect.max().item(),
+                                  "max_bound": bound.max().item()})
+            return forced.to(out.dtype)
+
+        return [m.register_forward_hook(hook) for m in self._attn_modules(model)]
+
+    def summary(self):
+        if len(self.rows) != len(self.card):
+            raise AssertionError(f"{len(self.card)} cross-attention calls on the card, "
+                                 f"{len(self.rows)} on the CPU")
+        return "flips per layer " + str([r["flips"] for r in self.rows]) + (
+            f" in {sum(r['queries'] for r in self.rows)} (query, layer) pairs; queries in "
+            f"another order {[r['reordered'] for r in self.rows]}; largest effect "
+            f"{max(r['max_effect'] for r in self.rows):.3e} (bound "
+            f"{max(r['max_bound'] for r in self.rows):.3e})")
+
+
+def serve_captured(torch, fn, x, install=None):
+    """fn(x) with the model's raw outputs and the encoder's score logits kept
+    by forward hooks; `install(model)` adds hooks (DiscreteFlips)."""
+    model = fn.module.model
+    raw = {}
+    handles = [model.register_forward_hook(lambda m, a, o: raw.update(out=o)),
+               model.decoder.enc_score_head.register_forward_hook(
+                   lambda m, a, o: raw.update(enc=o.detach()))]
+    if install is not None:
+        handles += install(model)
+    try:
+        det = fn(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return det, raw
+
+
+def compare_raw(torch, got, want, option, tol):
+    """The raw pred_logits and pred_boxes query by query in encoder order
+    (rtol = atol = tol), each query paired by its selection key: its (anchor,
+    class) flat index under one2many (an anchor chosen for two classes gives
+    two equal queries, but two keys), its anchor otherwise. The keys come
+    from the same top-K on the same device as the model's, so exactly tied
+    scores keep the order each device gave them. A key selected on
+    one side only must sit within tol of the K-th encoder score (a near-tie
+    at the boundary). Returns (largest error over tol, queries compared,
+    keys selected on one side only)."""
+    K = got["out"]["pred_logits"].shape[1]
+
+    def select(enc):  # on the model's device, as the model selects (ties in its order)
+        s = enc.flatten(1) if option == "one2many" else enc.max(-1).values
+        v, k = s.topk(K, dim=1)
+        return s.float().cpu(), (v.float().cpu(), k.cpu())
+
+    (gs, (gv, gk)), (ws, (wv, wk)) = select(got["enc"]), select(want["enc"])
+    worst, where, n, n_edge = 0.0, None, 0, 0
+    for b in range(gk.shape[0]):
+        gpos = {k: i for i, k in enumerate(gk[b].tolist())}
+        wpos = {k: i for i, k in enumerate(wk[b].tolist())}
+        for k in gpos.keys() ^ wpos.keys():
+            s, kth = (ws[b, k], wv[b, -1]) if k in gpos else (gs[b, k], gv[b, -1])
+            if abs(s - kth) > tol:
+                raise AssertionError(f"query selection differs: key {k}, score {s:.6f} against "
+                                     f"the K-th {kth:.6f}")
+            n_edge += 1
+        common = [k for k in gk[b].tolist() if k in wpos]
+        gi, wi = [gpos[k] for k in common], [wpos[k] for k in common]
+        for key in ("pred_logits", "pred_boxes"):
+            g = got["out"][key][b, gi].float().cpu()
+            w = want["out"][key][b, wi].float()
+            r = (g - w).abs() / (tol + tol * w.abs())
+            if r.max().item() > worst:
+                q, j = divmod(int(r.argmax()), r.shape[1])
+                worst = r.max().item()
+                where = (f"{key} image {b} key {common[q]} (card query {gi[q]}, CPU query "
+                         f"{wi[q]}) column {j}: card {g[q, j].item():.6f}, CPU "
+                         f"{w[q, j].item():.6f}")
+        n += len(common)
+    if worst > 1:
+        raise AssertionError(f"raw outputs differ: {worst:.3f} x (rtol = atol = {tol:g}) at "
+                             f"{where}; encoder scores tied exactly among the selected: "
+                             f"{int((gv[:, :-1] == gv[:, 1:]).sum())} adjacent pairs")
+    return worst, n, n_edge
+
+
+def options_serving(torch, out, option, device="cuda", img=IMG, model_name="m"):
+    """(a) build_serving of one option's model: launches of bs1 and bs4
+    forwards, the detections, and the card against CPU copies (all f32 at
+    1e-4; as served against the same modes at SERVED_SAME_TOL) by the raw
+    outputs in encoder order and by the detections. Returns (launches,
+    forward fn, model)."""
+    from custom_d_fine_tpu_torch.deploy.reparam import convert_to_deploy
+    from custom_d_fine_tpu_torch.deploy.serving import build_serving, make_serving_forward
+    from custom_d_fine_tpu_torch.models.dfine import build_model
+    from custom_d_fine_tpu_torch.ops.msda import msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+
+    cfg = option_config(option, model_name)
+    fn, model = build_serving(cfg, 80, img, device=device, seed=0)
+    g = torch.Generator().manual_seed(3)
+    batches = {bs: torch.randint(0, 256, (bs, *img, 3), dtype=torch.uint8, generator=g).to(device)
+               for bs in (1, 4)}
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = stem_fwd.fast_launches = msda_fwd.launches = 0
+    n_fwd = 0
+    for bs in (1, 4):
+        for _ in range(2):
+            det = fn(batches[bs])
+            n_fwd += 1
+            detections_ok(det, bs)
+    torch.cuda.synchronize()
+    launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches}
+    want = {"stem_fwd": n_fwd, "msda_fwd": n_msda(cfg) * n_fwd}
+    log(f"[options] {option} serving: {n_fwd} forwards (bs1 x2, bs4 x2): launches {launches}, "
+        f"{stem_fwd.fast_launches} fast (expected {want}, all fast)")
+    if launches != want or stem_fwd.fast_launches != n_fwd:
+        raise AssertionError(f"expected {want}, all fast; got {launches}, "
+                             f"{stem_fwd.fast_launches} fast")
+
+    # ---- the card against CPU copies (conv kernels x sqrt(6), as phase 4)
+    ref = build_model(cfg, num_classes=80, seed=1)
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(math.sqrt(6.0))
+    convert_to_deploy(ref)
+    cpu = copy.deepcopy(ref)
+    card = ref.to(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x1 = batches[1]
+    cmp = {}
+    for mode, tol, card_kw, cpu_kw in (
+            ("f32", 1e-4, dict(msda_value_dtype=None, stem_fast=False),
+             dict(msda_value_dtype=None, stem_fast=False)),
+            ("same_modes", SERVED_SAME_TOL, {},
+             dict(msda_value_dtype=torch.bfloat16, stem_fast=True))):
+        flips = DiscreteFlips(torch) if option == "discrete" else None
+        got_det, got = serve_captured(torch, make_serving_forward(card, img, **card_kw), x1,
+                                      flips and flips.record)
+        want_det, want = serve_captured(torch, make_serving_forward(cpu, img, **cpu_kw),
+                                        x1.cpu(), flips and flips.follow)
+        worst, n_q, n_edge = compare_raw(torch, got, want, option, tol)
+        err, n_keep = compare_detections(got_det, want_det, img, tol=tol)
+        cmp[mode] = {"raw_err_over_tol": worst, "queries": n_q, "edge_keys": n_edge,
+                     "scores_max_abs_err": err, "robust_detections": n_keep}
+        note = ""
+        if flips is not None:
+            note = "; " + flips.summary()
+            cmp[mode]["flips"] = list(flips.rows)
+        log(f"[options] {option} card vs CPU ({mode}, {tol:g}): raw logits/boxes on {n_q} "
+            f"queries in encoder order, largest error {worst:.3f} of the tolerance ({n_edge} "
+            f"boundary near-ties); detection scores {err:.3e}, labels/boxes equal on {n_keep} "
+            f"tie-robust detections{note}")
+    out[f"{option}_cpu_compare"] = cmp
+    del card, cpu, ref
+    return launches, fn, model
+
+
+def options_serving_times(torch, out, fns, n_timed=50, device="cuda", img=IMG):
+    """bs1 request ms at PyTorch's default precision for the default model
+    and each option, in two rounds (forward, then backward order), and a bs1
+    profile of each option, beside phase 4's default model."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.randint(0, 256, (1, *img, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(3)).to(device)
+    names = list(fns)
+    times = {k: [] for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            times[k].append(host_ms(lambda: fns[k](x), iters=n_timed))
+    d4 = out.get("detect_serving_ms_per_request", {}).get("bs1_default", {}).get("median")
+    for k in names:
+        med = [t["median"] for t in times[k]]
+        log(f"[options] serving bs1 {k}: request median {med[0]:.3f} / {med[1]:.3f} ms (two "
+            f"rounds of n={n_timed}; phase 4's default model: "
+            f"{'n/a' if d4 is None else f'{d4:.3f}'})")
+    out["serving_bs1_ms"] = times
+    for k in names:
+        if k != "default":
+            out[f"{k}_profile_bs1"] = profile(torch, lambda: fns[k](x),
+                                              statistics.median(t["median"] for t in times[k]),
+                                              f"{k} serving bs1")
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def options_training(torch, out, option, device="cuda", img=IMG, model_name="m",
+                     batch_size=16, n_warmup=2, n_steps=4):
+    """(b) build_training of one option's model at bs16 640^2 bf16 with 12 GT
+    boxes an image: launches, every loss term finite (the encoder set's
+    terms by name), ms/step, peak memory; for agnostic and discrete one f32
+    step against a CPU copy (discrete: flip-aware)."""
+    from custom_d_fine_tpu_torch.ops.msda import msda_bwd, msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+    from custom_d_fine_tpu_torch.train.train_step import build_training
+
+    cfg = option_config(option, model_name)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    step, state = build_training(cfg, 80, device=device, seed=0, bf16=device != "cpu")
+    batch = {k: v.to(device) for k, v in train_batch(
+        torch, batch_size, img, torch.Generator().manual_seed(5), cfg.max_gt).items()}
+    dn = torch.Generator().manual_seed(0)
+    for _ in range(n_warmup):
+        state, m = step(state, batch, dn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = msda_fwd.launches = msda_bwd.launches = 0
+    times, terms = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, dn)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        terms.append(m)
+    launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches,
+                "msda_bwd": msda_bwd.launches}
+    want = {"stem_fwd": 0, "msda_fwd": n_msda(cfg) * n_steps, "msda_bwd": n_msda(cfg) * n_steps}
+    if launches != want:
+        raise AssertionError(f"{option} training: expected launches {want}, got {launches}")
+    values = {k: [float(t[k]) for t in terms] for k in terms[0]}
+    enc = {"loss_vfl_enc_0", "loss_bbox_enc_0", "loss_giou_enc_0"}
+    if not enc <= set(values):
+        raise AssertionError(f"{option} training: no encoder-set terms {sorted(enc)}")
+    bad = [k for k, v in values.items() if not all(math.isfinite(x) for x in v)]
+    if bad:
+        raise AssertionError(f"{option} training: non-finite metrics {bad}")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[options] {option} training bs{batch_size} {img[0]}^2 bf16: {n_steps} steps, launches "
+        f"{launches} (expected {want}); {ms:.2f} ms/step median ({batch_size * 1e3 / ms:.1f} "
+        f"img/s; detect, phase 5: {out.get('detect_train_ms', float('nan')):.2f}); peak device "
+        f"memory {peak:.2f} GB (detect, phase 5: {out.get('detect_peak_gb', float('nan')):.2f}); "
+        f"{len(values) - 2} loss terms finite, loss_vfl_enc_0 "
+        f"{values['loss_vfl_enc_0'][-1]:.4f}")
+    out[f"{option}_training"] = {"ms_per_step": times, "ms_per_step_median": ms,
+                                 "peak_mem_gb": peak, "launches": launches, "metrics": values}
+    del step, state, batch
+    if option != "one2many":
+        compare_train_step(torch, out, cfg, key=f"{option}_train_cpu_compare",
+                           flip_aware=option == "discrete")
+    return launches
+
+
+def options_trainer(torch, out, workdir, overrides=(), n_train=32, n_val=8):
+    """(c) one Trainer epoch with model_cfg_override set to the agnostic
+    D-FINE-m (bs16 640^2 bf16, EMA): launches, the loss, the metric keys."""
+    from custom_d_fine_tpu_torch.ops.msda import msda_bwd, msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+    from custom_d_fine_tpu_torch.train.trainer import Trainer
+    from custom_d_fine_tpu_torch.utils.config import load_config
+
+    num_classes = 80
+    data = os.path.join(workdir, "opt_data")
+    write_yolo_set(data, n_train, n_val, num_classes, seed=2)
+    cfg = load_config(overrides=[
+        "model_name=m", f"train.data_path={data}", f"train.path_to_save={workdir}/opt_run",
+        "train.epochs=1", "train.batch_size=16", "train.num_workers=4",
+        f"train.img_size=[{IMG[0]},{IMG[1]}]", "train.dtype=bfloat16", "train.use_ema=true",
+        "exp_name=chip_smoke_agnostic", *overrides])
+    cfg["train"]["label_to_name"] = {i: f"class_{i}" for i in range(num_classes)}
+    trainer = Trainer(cfg, model_cfg_override=option_config("agnostic", cfg["model_name"]))
+    if trainer.state.model.decoder.enc_score_head.out_features != 1:
+        raise AssertionError("model_cfg_override did not build the agnostic score head")
+
+    # ---- the main path: counts set to 0 just before, read just after
+    stem_fwd.launches = msda_fwd.launches = msda_bwd.launches = 0
+    history = trainer.train()
+    launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches,
+                "msda_bwd": msda_bwd.launches}
+    t = trainer.timings[0]
+    n_eval = -(-n_val // trainer.loader.batch_size)
+    n_layers = trainer.model_cfg.decoder.num_layers
+    want = {"stem_fwd": 0, "msda_fwd": n_layers * (t["steps"] + n_eval),
+            "msda_bwd": n_layers * t["steps"]}
+    m = history[0]
+    log(f"[options] agnostic Trainer, 1 epoch ({t['steps']} steps + {n_eval} eval batch): "
+        f"launches {launches} (expected {want}); train_loss {m['train_loss']:.4f}, mAP_50 "
+        f"{m['mAP_50']:.4f}; epoch {t['epoch_s']:.2f} s")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    if set(m) != TRAINER_METRIC_KEYS:
+        raise AssertionError(f"metrics keys {sorted(m)}, expected {sorted(TRAINER_METRIC_KEYS)}")
+    if not math.isfinite(m["train_loss"]):
+        raise AssertionError(f"non-finite training loss {m['train_loss']}")
+    out["agnostic_trainer"] = {"timings": t, "metrics": m, "launches": launches}
+    return launches
+
+
+def options_export(torch, out, model, workdir, img=IMG):
+    """(d) the discrete serving graph through export_and_verify; the loaded
+    artifact's graph and its launches in one call (1 stem, no MSDA)."""
+    from custom_d_fine_tpu_torch.deploy.export import export_and_verify, load_inference_artifact
+    from custom_d_fine_tpu_torch.ops.msda import msda_fwd
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+
+    art_dir = tempfile.mkdtemp(prefix="discrete_artifact_", dir=workdir)
+    t0 = time.perf_counter()
+    path = export_and_verify(model, img, os.path.join(art_dir, "model_discrete.pt2"))
+    export_s = time.perf_counter() - t0
+    ops = {str(n.target) for n in torch.export.load(str(path)).graph.nodes
+           if n.op == "call_function"}
+    custom = sorted(o for o in ops if "dfine_port" in o)
+    art = load_inference_artifact(path)
+    x = torch.randint(0, 256, (1, *img, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(4)).to(next(model.parameters()).device)
+    with torch.inference_mode():
+        stem_fwd.launches = stem_fwd.fast_launches = msda_fwd.launches = 0
+        det = art(x)
+        torch.cuda.synchronize()
+    launches = {"stem_fwd": stem_fwd.launches, "msda_fwd": msda_fwd.launches}
+    detections_ok(det, 1)
+    log(f"[options] discrete artifact {os.path.getsize(path) / 1e6:.1f} MB: export_and_verify "
+        f"passed in {export_s:.1f} s; its custom ops {custom}; 1 call: launches {launches}")
+    if launches != {"stem_fwd": 1, "msda_fwd": 0} or any("msda" in o for o in custom):
+        raise AssertionError(f"the discrete artifact: {launches}, ops {custom}")
+    out["discrete_artifact"] = {"bytes": os.path.getsize(path), "export_and_verify_s": export_s,
+                                "custom_ops": custom, "launches": launches}
+    shutil.rmtree(art_dir, ignore_errors=True)
+    return launches
+
+
+def phase_options(torch, report, workdir, card):
+    """Phase 9: D-FINE-m with each decoder option (agnostic and one2many
+    query selection, discrete cross-attention), reached through a
+    ModelConfig: served, trained (step and Trainer) and exported. Each
+    path's counts are set to 0 just before it runs and read just after."""
+    from custom_d_fine_tpu_torch.deploy.serving import build_serving
+
+    out = report.setdefault("options", {"card": card})
+    out["detect_serving_ms_per_request"] = report.get("serving_ms_per_request", {})
+    out["detect_train_ms"] = report.get("training", {}).get("ms_per_step_median", float("nan"))
+    out["detect_peak_gb"] = report.get("training", {}).get("peak_mem_gb", float("nan"))
+    paths, fns, models = {}, {"default": build_serving("m", 80, IMG, seed=0)[0]}, {}
+    for option in OPTIONS:
+        paths[f"{option}_serving"], fns[option], models[option] = options_serving(
+            torch, out, option)
+    options_serving_times(torch, out, fns)
+    paths["discrete_artifact"] = options_export(torch, out, models["discrete"], workdir)
+    del fns, models  # the training steps' peak memory counts only their own
+    for option in OPTIONS:
+        paths[f"{option}_training"] = options_training(torch, out, option)
+    paths["agnostic_trainer"] = options_trainer(torch, out, workdir)
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checks-only", action="store_true",
@@ -1860,6 +2349,7 @@ def main() -> int:
                 paths["trainer"] = phase_trainer(torch, report, workdir)
                 paths.update(phase_deploy(torch, report, workdir, card))
                 paths.update(phase_segment(torch, report, workdir, card))
+                paths.update(phase_options(torch, report, workdir, card))
             finally:
                 shutil.rmtree(workdir, ignore_errors=True)
         for row in rows:  # each path's launches, from its own zeroed counters

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.boxes import inverse_sigmoid
+from ..ops.deform_attn import ms_deform_attn_discrete
 from ..ops.fdr import distance2bbox, weighting_function
 from ..ops.msda import msda
 from .denoising import build_cdn_group, build_dn_attn_mask, dn_layout
@@ -31,16 +32,19 @@ GN_EPS = 1e-6  # flax nn.GroupNorm's default, which the JAX package uses (torch'
 
 class MSDeformableAttention(nn.Module):
     """Multi-scale deformable attention (reference dfine_decoder.py:49-178).
-    The sampling runs through ops/msda.py:msda, whose forward and backward
-    are the MSDA kernels."""
+    method "default" samples bilinearly through ops/msda.py:msda, whose
+    forward and backward are the MSDA kernels; "discrete" takes the nearest
+    pixel (ops/deform_attn.py:ms_deform_attn_discrete, plain PyTorch on
+    every device, as the JAX package's XLA path) and never runs the MSDA
+    kernels."""
 
     def __init__(self, embed_dim: int, num_heads: int, num_levels: int,
                  num_points: Sequence[int], offset_scale: float = 0.5,
                  method: str = "default"):
         super().__init__()
-        if method != "default":
-            raise NotImplementedError(
-                f"cross_attn_method={method!r}: only 'default' has a kernel in this port")
+        if method not in ("default", "discrete"):
+            raise ValueError(f"cross_attn_method={method!r}: expected 'default' or 'discrete'")
+        self.method = method
         self.num_heads = num_heads
         self.num_points = tuple(num_points)
         self.offset_scale = offset_scale
@@ -50,8 +54,10 @@ class MSDeformableAttention(nn.Module):
         nps = np.concatenate([np.full((n,), 1.0 / n, np.float32) for n in self.num_points])
         self.register_buffer("num_points_scale", torch.from_numpy(nps), persistent=False)
 
-    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
-                value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    def locations(self, query: torch.Tensor, reference_points: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The sampling locations loc [B, Lq, h, P, 2] (x, y) and the softmaxed
+        attention weights [B, Lq, h, P] of `query` around its reference box."""
         B, Lq, _ = query.shape
         h, P = self.num_heads, sum(self.num_points)
         offsets = self.sampling_offsets(query).reshape(B, Lq, h, P, 2)
@@ -59,7 +65,13 @@ class MSDeformableAttention(nn.Module):
         # reference 4-dim branch (:156-166): offset scaled by box wh and 1/n per level
         offset = (offsets * self.num_points_scale[None, None, None, :, None]
                   * reference_points[:, :, None, None, 2:] * self.offset_scale)
-        loc = reference_points[:, :, None, None, :2] + offset
+        return reference_points[:, :, None, None, :2] + offset, attn
+
+    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
+                value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        loc, attn = self.locations(query, reference_points)
+        if self.method == "discrete":
+            return ms_deform_attn_discrete(value, spatial_shapes, loc, attn, self.num_points)
         return msda(value, spatial_shapes, loc, attn, self.num_points)
 
 
@@ -208,10 +220,11 @@ class DFINETransformer(nn.Module):
                  query_select_method: str = "default", enable_mask_head: bool = False,
                  mask_dim: int = 256):
         super().__init__()
-        if query_select_method != "default":
-            raise NotImplementedError(
-                f"query_select_method={query_select_method!r}: only 'default' is ported")
+        if query_select_method not in ("default", "agnostic", "one2many"):
+            raise ValueError(f"query_select_method={query_select_method!r}: expected "
+                             f"'default', 'agnostic' or 'one2many'")
         C = hidden_dim
+        self.cross_attn_method, self.query_select_method = cross_attn_method, query_select_method
         self.num_classes, self.hidden_dim, self.num_queries = num_classes, C, num_queries
         self.num_levels, self.nhead, self.num_layers = num_levels, nhead, num_layers
         self.eval_idx = eval_idx if eval_idx >= 0 else num_layers + eval_idx
@@ -240,7 +253,7 @@ class DFINETransformer(nn.Module):
         self.query_pos_head = MLP(4, 2 * C, C, 2)
         self.enc_output = nn.Sequential(OrderedDict([
             ("proj", nn.Linear(C, C)), ("norm", nn.LayerNorm(C, eps=LN_EPS))]))
-        self.enc_score_head = nn.Linear(C, num_classes)
+        self.enc_score_head = nn.Linear(C, 1 if query_select_method == "agnostic" else num_classes)
         self.enc_bbox_head = MLP(C, C, 4, 3)
         self.pre_bbox_head = MLP(C, C, 4, 3)
         self.dec_score_head = nn.ModuleList(nn.Linear(C, num_classes) for _ in range(num_layers))
@@ -269,8 +282,11 @@ class DFINETransformer(nn.Module):
         with the mask head "pred_masks" [B,Q,Hm,Wm] (probabilities in eval
         mode, logits in train mode; Hm x Wm is twice the finest level)} and,
         in train mode, the criterion's output sets. msda_value_dtype: dtype
-        of the MSDA value map (None keeps the memory's dtype; the card's serving
-        and bf16 training pass bf16, as the TPU's pallas_sep_fast does).
+        of the MSDA kernel's value map (None keeps the memory's dtype; the
+        card's serving and bf16 training pass bf16, as the TPU's
+        pallas_sep_fast does). The discrete cross-attention ignores it and
+        gathers from the memory in the model's compute dtype, as the JAX
+        package's XLA path, the only one that computes it, does.
         targets {labels [B,G], boxes [B,G,4], valid [B,G]} and dn_draws
         (models/denoising.draw_dn_noise) switch on the denoising queries in
         train mode."""
@@ -307,7 +323,12 @@ class DFINETransformer(nn.Module):
                                      lambda: generate_anchors(spatial_shapes, eps=self.eps), dev)
         out_mem = self.enc_output(valid.to(memory.dtype) * memory)
         enc_logits = self.enc_score_head(out_mem)
-        topk_ind = enc_logits.max(-1).values.topk(self.num_queries, dim=1).indices
+        if self.query_select_method == "one2many":
+            # top-K over (anchor, class) pairs: an anchor may be chosen once per class
+            flat_ind = enc_logits.flatten(1).topk(self.num_queries, dim=1).indices
+            topk_ind = flat_ind // self.num_classes
+        else:  # "agnostic" has one column
+            topk_ind = enc_logits.max(-1).values.topk(self.num_queries, dim=1).indices
 
         def gather_q(x):
             return torch.gather(x, 1, topk_ind[..., None].expand(-1, -1, x.shape[-1]))
@@ -324,7 +345,7 @@ class DFINETransformer(nn.Module):
 
         # ---- FDR decoder loop (reference TransformerDecoder.forward :429-524)
         value = memory.reshape(B, memory.shape[1], self.nhead, C // self.nhead)
-        if msda_value_dtype is not None:
+        if msda_value_dtype is not None and self.cross_attn_method != "discrete":
             value = value.to(msda_value_dtype)
         value = value.contiguous()
         output = content
@@ -398,7 +419,8 @@ class DFINETransformer(nn.Module):
                "up": 0.5, "reg_scale": self.reg_scale,
                "aux_outputs": sets(logits, bboxes, corners, refs, masks_l)[:-1],
                "pre_outputs": {"pred_logits": pre_logits, "pred_boxes": pre_bboxes},
-               "enc_aux_outputs": enc_aux}
+               "enc_aux_outputs": enc_aux,
+               "enc_meta": {"class_agnostic": self.query_select_method == "agnostic"}}
         if masks_l is not None:
             out["pred_masks"] = masks_l[-1]
         if use_dn:

@@ -1,11 +1,14 @@
 """Multi-scale deformable attention, plain PyTorch: the counterpart of
 custom_d_fine_tpu/ops/deform_attn.py:ms_deform_attn_xla (:167-197).
 
-Per-level bilinear sampling of the value maps at the predicted locations,
-with the semantics of F.grid_sample(align_corners=False, padding_mode=zeros)
-that the reference uses (src/d_fine/arch/utils.py:191-264), weighted by the
-softmaxed attention and summed over levels and points. This is the function
-the MSDA kernel (ops/msda.py) is held against.
+`ms_deform_attn`: per-level bilinear sampling of the value maps at the
+predicted locations, with the semantics of F.grid_sample(align_corners=False,
+padding_mode=zeros) that the reference uses (src/d_fine/arch/utils.py:191-264),
+weighted by the softmaxed attention and summed over levels and points. This
+is the function the MSDA kernel (ops/msda.py) is held against.
+
+`ms_deform_attn_discrete`: cross_attn_method="discrete", the nearest-pixel
+gather (JAX ops/deform_attn.py:69-83, dispatched at :189-190).
 """
 
 from __future__ import annotations
@@ -66,6 +69,54 @@ def ms_deform_attn(
         w = attention_weights[:, :, :, p_off:p_off + P]
         sampled = _bilinear_gather_level(value_l, loc, H, W)
         out = out + (sampled * w[..., None]).sum(dim=3)
+        v_off += H * W
+        p_off += P
+    return out.reshape(B, Lq, n_head * c)
+
+
+def discrete_index(loc: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Nearest-pixel flat index of loc [..., 2] (x, y) in an H x W map:
+    x -> clip(int32(x * W + 0.5), 0, W - 1), y likewise with H, as the JAX
+    package computes it (the cast truncates toward zero). The clamp comes
+    before the cast here: wherever the int32 cast does not overflow the
+    result is the same, and beyond that it is the border, as XLA's
+    saturating conversion gives, where torch's cast of an out-of-range float
+    is undefined. Returns int64 [...]."""
+    xi = (loc[..., 0] * W + 0.5).clamp(0, W - 1).to(torch.int64)
+    yi = (loc[..., 1] * H + 0.5).clamp(0, H - 1).to(torch.int64)
+    return yi * W + xi
+
+
+def ms_deform_attn_discrete(
+    value: torch.Tensor,                     # [B, Len_v, n_head, c], levels concatenated
+    spatial_shapes: Sequence[Tuple[int, int]],
+    sampling_locations: torch.Tensor,        # [B, Lq, n_head, P_total, 2] (x, y)
+    attention_weights: torch.Tensor,         # [B, Lq, n_head, P_total] (softmaxed)
+    num_points_list: Sequence[int],
+) -> torch.Tensor:
+    """cross_attn_method="discrete": each point takes the value at its nearest
+    pixel (discrete_index), weighted by its attention and summed over levels
+    and points; returns [B, Lq, n_head * c] in the promoted dtype of value
+    and attention. The original repo (src/d_fine/arch/utils.py:233-254)
+    clamps both coordinates to H - 1; the JAX package clamps x to W - 1 and
+    y to H - 1, and so does this function. Gradients reach value and the
+    attention weights, none the locations (an integer index, as JAX's int
+    cast).
+
+    This function is also the computation on the card: the JAX package has
+    only an XLA version of it (no Pallas kernel), so there is no TPU kernel
+    to port, and the MSDA kernels (ops/msda.py) never run for a discrete
+    model."""
+    B, Len_v, n_head, c = value.shape
+    Lq = sampling_locations.shape[1]
+    assert sum(h * w for h, w in spatial_shapes) == Len_v, (spatial_shapes, Len_v)
+    out = torch.zeros((B, Lq, n_head, c), dtype=value.dtype, device=value.device)
+    v_off = p_off = 0
+    for (H, W), P in zip(spatial_shapes, num_points_list):
+        v = value[:, v_off:v_off + H * W].transpose(1, 2)  # [B, h, HW, c]
+        flat = discrete_index(sampling_locations[:, :, :, p_off:p_off + P], H, W)
+        w = attention_weights[:, :, :, p_off:p_off + P]
+        out = out + (_gather(v, flat) * w[..., None]).sum(dim=3)
         v_off += H * W
         p_off += P
     return out.reshape(B, Lq, n_head * c)

@@ -280,15 +280,18 @@ class DFINECriterion:
                 "valid": valid}
 
     def _terms(self, out, targets, match, match_go, n, n_go, suffix, add, local=None,
-               n_mask=None):
+               n_mask=None, num_classes=None):
         """Add the cfg.losses terms of one output set: vfl and masks on
         `match`, boxes and local on `match_go`. `local` is the state [fgl
         targets, num_pos_neg, is_dn, the global DDF counts] that loss_local
         carries from set to set, or None to skip it; n_mask, the normaliser of
-        the mask losses, or None for a set without masks.
+        the mask losses, or None for a set without masks; num_classes, the
+        set's logit width when it is not the model's (the class-agnostic
+        encoder set's 1).
         As in the JAX package, "focal" is a function of this module that the
         criterion does not dispatch."""
-        cfg, nc = self.cfg, self.num_classes
+        cfg = self.cfg
+        nc = self.num_classes if num_classes is None else num_classes
         for loss in cfg.losses:
             if loss == "vfl":
                 add(loss_labels_vfl(out, targets, match, n, nc, cfg.alpha, cfg.gamma), suffix)
@@ -367,9 +370,14 @@ class DFINECriterion:
                         num_boxes_go, f"_aux_{i}", add, local, n_mask[1 + i])
         self._terms(outputs["pre_outputs"], targets, to_match(assign[1 + n_aux]), match_go,
                     num_boxes, num_boxes_go, "_pre", add)
+        # ---- encoder sets (reference :698-725); with query_select_method
+        # "agnostic" their one column scores every GT as class 0
+        enc_targets, enc_nc = targets, None
+        if outputs.get("enc_meta", {}).get("class_agnostic", False):
+            enc_targets, enc_nc = {**targets, "labels": torch.zeros_like(targets["labels"])}, 1
         for i, enc in enumerate(enc_sets):
-            self._terms(enc, targets, to_match(assign[2 + n_aux + i]), match_go, num_boxes,
-                        num_boxes_go, f"_enc_{i}", add)
+            self._terms(enc, enc_targets, to_match(assign[2 + n_aux + i]), match_go, num_boxes,
+                        num_boxes_go, f"_enc_{i}", add, num_classes=enc_nc)
 
         # ---- denoising (reference :727-773): static matches, own normaliser
         if has_dn:

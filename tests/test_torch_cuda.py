@@ -413,6 +413,42 @@ def test_segment_serving_matches_the_cpu_copy(dev):
                                    atol=1e-4)
 
 
+def test_discrete_sampling_card_matches_cpu(dev):
+    """ms_deform_attn_discrete (cross_attn_method="discrete"; plain PyTorch,
+    which is also what runs on the card) on identical inputs on the card and
+    on the CPU, at D-FINE-m's serving shapes with 40 queries on pixel
+    boundaries of level 0 (x * W + 0.5 an integer) and points outside the
+    maps: the same pixel indices; the output at atol 1e-6 (sums of 12
+    weighted values); the gradients of value and attention at rtol = atol =
+    1e-5 (the attention's is a sum over 32 channels of products of N(0, 1)
+    terms, so f32 sums in another order differ by up to ~32 * 2^-24 * 6);
+    no gradient to the locations."""
+    from custom_d_fine_tpu_torch.ops.deform_attn import discrete_index, ms_deform_attn_discrete
+
+    g = torch.Generator().manual_seed(0)
+    shapes, points, B, Lq, h, c = [(80, 80), (40, 40), (20, 20)], [3, 6, 3], 2, 300, 8, 32
+    value = torch.randn(B, sum(H * W for H, W in shapes), h, c, generator=g)
+    loc = torch.rand(B, Lq, h, 12, 2, generator=g) * 1.4 - 0.2
+    loc[:, :40] = (torch.randint(0, 80, (B, 40, h, 12, 2), generator=g) + 0.5) / 80
+    attn = torch.softmax(torch.randn(B, Lq, h, 12, generator=g), -1)
+    grad = torch.randn(B, Lq, h * c, generator=g)
+    res = []
+    for d in ("cpu", dev):
+        v, l, a = (t.clone().to(d).requires_grad_() for t in (value, loc, attn))
+        out = ms_deform_attn_discrete(v, shapes, l, a, points)
+        out.backward(grad.to(d))
+        idx = [discrete_index(l.detach()[:, :, :, p0:p0 + P], H, W).cpu()
+               for (H, W), p0, P in zip(shapes, (0, 3, 9), points)]
+        assert l.grad is None
+        res.append((idx, out.detach().cpu(), v.grad.cpu(), a.grad.cpu()))
+    (i_cpu, *want), (i_dev, *got) = res
+    for a, b in zip(i_cpu, i_dev):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
 def test_profiling_helpers_read_the_card(dev):
     """utils/profiling.py on a matmul: the profiler's device events, the
     trace summary, StepTimer and the memory statistics."""
