@@ -15,8 +15,11 @@ without printing its final line:
      timed beside its plain version and a PyTorch library formulation where
      one exists (device time from the profiler's device events; CUDA events
      over back-to-back calls as a second reading), with its bound on the card.
-     The stem in both modes (exact f32; fast: bf16 operands on the tensor
-     cores, as served) and the MSDA forward at the serving shapes (plus 36
+     The stem in both modes (exact f32 at B = 1, 2 and 16 at 640^2, a ragged
+     B = 3 size and the B5 widths, timed at bs1 and bs16; fast: bf16
+     operands on the tensor cores, as served), with the SASS of each (tensor
+     cores in the fast one, none in the exact one, whose FFMA to load ratio
+     is logged), and the MSDA forward at the serving shapes (plus 36
      points on 4 levels, and c = 6, 36 and 160), the MSDA forward and
      backward at the training shapes (B = 2 and 16, 500 queries, f32 and
      bf16 values, plus a level wider than one shared-memory slab).
@@ -24,7 +27,8 @@ without printing its final line:
      init; serves uint8 batches at bs1 and bs4 with every launch counter set
      to 0 just before and read just after; checks the detections; compares
      bs1 detections with the same forward on a CPU copy of the model (all
-     f32, and in the served modes: fast stem, bf16 MSDA value); times
+     f32, one exact stem launch and no fast one; and in the served modes:
+     fast stem, bf16 MSDA value); times
      serving ms/img at bs1 and bs16 with TF32 off, as PyTorch defaults it
      (convolutions only) and fully on; profiles bs1 requests for the device's
      busy time and idle share.
@@ -244,33 +248,57 @@ def stem_work(B, H, W, M, M2, O):
     return B * H * W * 3 + B * H4 * W4 * O * 4 + weights * 4, 2.0 * B * macs
 
 
-def sass_count(lib_name: str, opcode: str) -> int:
-    """Instructions of `opcode` in a built library's SASS (cuobjdump -sass),
-    or -1 when the toolkit has no cuobjdump."""
-    import shutil
+SASS_OPCODE = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9]*)")
+SASS_FFMA = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?P\w+\s+)?FFMA\s+R\d+,\s*(-?R\w+(?:\.reuse)?),"
+                       r"\s*(-?R\w+(?:\.reuse)?),\s*(-?R\w+(?:\.reuse)?)\s*;")
 
+
+def sass_lines(lib_name: str):
+    """A built library's SASS (cuobjdump -sass), line by line, or None when
+    the toolkit has no cuobjdump."""
     from custom_d_fine_tpu_torch.ops import _ext
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        return -1
-    sass = subprocess.run([tool, "-sass", str(_ext.build_dir() / f"lib{lib_name}.so")],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    return sum(1 for line in sass.splitlines() if opcode in line)
+        return None
+    return subprocess.run([tool, "-sass", str(_ext.build_dir() / f"lib{lib_name}.so")],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout.splitlines()
 
 
-def check_stem(torch, report):
-    """Both modes against the plain version on the same weights and bytes, at
-    B = 1 and 2, 640^2: exact at atol 2e-5, fast at STEM_FAST_TOL of the
-    output's largest entry (a bf16 intermediate may round the other way when
-    its f32 sum is taken in another order). Timed at bs1, as serving calls it."""
+def sass_opcodes(lines):
+    """Instructions by opcode (the mnemonic without its modifiers)."""
+    counts = {}
+    for line in lines:
+        m = SASS_OPCODE.match(line)
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def ffma_same_bank(lines):
+    """(FFMAs, FFMAs with two source registers of the same parity, neither
+    marked .reuse): operands that the register file reads from one bank."""
+    n = same = 0
+    for line in lines:
+        m = SASS_FFMA.match(line)
+        if m:
+            n += 1
+            par = [int(r.lstrip("-")[1:]) % 2 for r in m.groups()
+                   if not r.endswith(".reuse") and not r.lstrip("-").startswith("RZ")]
+            same += len(set(par)) < len(par)
+    return n, same
+
+
+def random_stem(torch, M, O, g):
+    """A StemBlock with LAB and non-trivial BN statistics and LAB scalars,
+    folded on the card."""
     from custom_d_fine_tpu_torch.models.hgnetv2 import StemBlock
-    from custom_d_fine_tpu_torch.ops.stem import fold_stem_weights, stem_fwd, stem_fwd_plain
+    from custom_d_fine_tpu_torch.ops.stem import fold_stem_weights
 
-    g = torch.Generator().manual_seed(1)
-    stem = StemBlock(3, 24, 32, use_lab=True).eval()  # the B2 stem of D-FINE-m
+    stem = StemBlock(3, M, O, use_lab=True).eval()
     with torch.no_grad():
-        for m in stem.modules():  # non-trivial BN statistics and LAB scalars
+        for m in stem.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
                 m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.2)
                 m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
@@ -279,7 +307,26 @@ def check_stem(torch, report):
             if hasattr(m, "scale") and isinstance(m.scale, torch.nn.Parameter):
                 m.scale.fill_(1.1)
                 m.bias.fill_(-0.05)
-    fw = fold_stem_weights(stem.cuda())
+    return fold_stem_weights(stem.cuda())
+
+
+STEM_RAGGED = (3, 652, 668)  # 163x167 stride-4 outputs: ragged 10x10 tiles both ways
+
+
+def check_stem(torch, report):
+    """Both modes against the plain version on the same weights and bytes.
+    Exact at atol 2e-5: B = 1, 2 and 16 at 640^2 with D-FINE-m's B2 widths
+    (24/12/32), B = 3 at STEM_RAGGED, and the B5 stem's widths (32/16/64) at
+    B = 2 640^2. Fast at STEM_FAST_TOL of the output's largest entry (a bf16
+    intermediate may round the other way when its f32 sum is taken in another
+    order) at B = 1 and 2. The SASS of each library: tensor-core instructions
+    in the fast one and none in the exact one, whose FFMA to load ratio is
+    logged. Timed at bs1 (both modes, as serving calls them) and at bs16
+    (exact), each beside its bound."""
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd, stem_fwd_plain
+
+    g = torch.Generator().manual_seed(1)
+    fw = random_stem(torch, 24, 32, g)  # the B2 stem of D-FINE-m
     err = {False: 0.0, True: 0.0}
     fast_scaled = 0.0
     for B in (1, 2):
@@ -306,25 +353,62 @@ def check_stem(torch, report):
             if not (torch.isfinite(got).all() and ok):
                 raise AssertionError(f"stem kernel (fast={fast}) disagrees with its plain "
                                      f"version: {e}")
-    hmma = sass_count("stem_tc", "HMMA")
+    fw_b5 = random_stem(torch, 32, 64, g)
+    for name, w, (B, H, W) in (("B2", fw, (16, *IMG)), ("B2", fw, STEM_RAGGED),
+                               ("B5", fw_b5, (2, *IMG))):
+        x = torch.randint(0, 256, (B, H, W, 3), dtype=torch.uint8, generator=g).cuda()
+        got = stem_fwd(x, w)
+        torch.cuda.synchronize()
+        e = (got - stem_fwd_plain(x, w)).abs().max().item()
+        torch.cuda.synchronize()
+        err[False] = max(err[False], e)
+        log(f"[stem] exact {name} B={B} {H}x{W} -> {tuple(got.shape)} max_abs_err={e:.3e} "
+            f"(atol 2e-5)")
+        if not (torch.isfinite(got).all() and e <= 2e-5):
+            raise AssertionError(f"exact stem kernel disagrees with its plain version at "
+                                 f"{name} B={B} {H}x{W}: {e}")
+    del fw_b5
+
+    tc = sass_lines("stem_tc")
+    hmma = -1 if tc is None else sass_opcodes(tc).get("HMMA", 0)
     log(f"[stem] cuobjdump -sass libstem_tc.so: {hmma} HMMA instructions"
         + (" (cuobjdump not found: not checked)" if hmma < 0 else ""))
     if hmma == 0:
         raise AssertionError("the fast stem kernel has no tensor-core (HMMA) instruction")
-    x = torch.randint(0, 256, (1, *IMG, 3), dtype=torch.uint8, generator=g).cuda()
-    bytes_, flops = stem_work(1, *IMG, 24, 12, 32)
+    lines = sass_lines("stem")
+    sass = None
+    if lines is None:
+        log("[stem] cuobjdump -sass libstem.so: cuobjdump not found: not checked")
+    else:
+        ops = sass_opcodes(lines)
+        sass = {k: ops.get(k, 0) for k in ("FFMA", "LDS", "LDG", "HMMA", "HGMMA")}
+        sass["ffma_per_load"] = sass["FFMA"] / max(1, sass["LDS"] + sass["LDG"])
+        n_ffma, same = ffma_same_bank(lines)
+        sass["ffma_same_bank_share"] = same / max(1, n_ffma)
+        log(f"[stem] cuobjdump -sass libstem.so (static counts, every instantiation): "
+            f"{sass['FFMA']} FFMA, {sass['LDS']} LDS, {sass['LDG']} LDG, {sass['HMMA']} HMMA, "
+            f"{sass['HGMMA']} HGMMA; {sass['ffma_per_load']:.2f} FFMA per load; "
+            f"{sass['ffma_same_bank_share']:.2f} of the FFMAs read two registers of one bank")
+        if sass["HMMA"] or sass["HGMMA"]:
+            raise AssertionError("the exact stem kernel holds tensor-core instructions")
+
     modes = {}
-    for name, fast, peak in (("fast", True, PEAK_BF16), ("exact", False, PEAK_F32)):
-        t_k = time_call(lambda: stem_fwd(x, fw, fast))
-        t_p = time_call(lambda: stem_fwd_plain(x, fw, fast))
+    for name, fast, peak, B in (("fast", True, PEAK_BF16, 1), ("exact", False, PEAK_F32, 1),
+                                ("exact_bs16", False, PEAK_F32, 16)):
+        x = torch.randint(0, 256, (B, *IMG, 3), dtype=torch.uint8, generator=g).cuda()
+        bytes_, flops = stem_work(B, *IMG, 24, 12, 32)
+        t_k = time_call(lambda: stem_fwd(x, fw, fast), iters=20 if B == 1 else 10)
+        t_p = time_call(lambda: stem_fwd_plain(x, fw, fast), iters=20 if B == 1 else 5)
         b_ms, b_by = bound(bytes_, flops, peak)
         modes[name] = dict(ms=t_k["ms"], plain_ms=t_p["ms"], bound_ms=b_ms, bound_by=b_by,
                            cuda_events_ms=t_k["cuda_events_ms"],
-                           plain_cuda_events_ms=t_p["cuda_events_ms"])
-        log(f"[stem] {name} bs1 device time: kernel {t_k['ms']:.4f} ms | plain "
-            f"{t_p['ms']:.4f} ms (CUDA events over back-to-back calls: "
-            f"{t_k['cuda_events_ms']:.4f} | {t_p['cuda_events_ms']:.4f}) | bound "
-            f"{b_ms * 1e3:.2f} us ({b_by}) | library: none (no single PyTorch call is the stem)")
+                           plain_cuda_events_ms=t_p["cuda_events_ms"],
+                           tflops=flops / (t_k["ms"] * 1e-3) / 1e12)
+        log(f"[stem] {name.split('_')[0]} bs{B} device time: kernel {t_k['ms']:.4f} ms "
+            f"({modes[name]['tflops']:.2f} TFLOP/s) | plain {t_p['ms']:.4f} ms (CUDA events "
+            f"over back-to-back calls: {t_k['cuda_events_ms']:.4f} | "
+            f"{t_p['cuda_events_ms']:.4f}) | bound {b_ms * 1e3:.2f} us ({b_by}; "
+            f"{b_ms / t_k['ms']:.3f} of it) | library: none (no single PyTorch call is the stem)")
     f, ex = modes["fast"], modes["exact"]
     row = {"name": "stem_fwd", "route": "cuda",
            "source": "custom_d_fine_tpu_torch/csrc/stem_tc.cu",
@@ -336,7 +420,8 @@ def check_stem(torch, report):
            "cuda_events_ms": f["cuda_events_ms"],
            "plain_cuda_events_ms": f["plain_cuda_events_ms"], "hmma_instructions": hmma,
            "exact": {"source": "custom_d_fine_tpu_torch/csrc/stem.cu",
-                     "max_abs_err": err[False], **ex}}
+                     "max_abs_err": err[False], **ex, "bs16": modes["exact_bs16"],
+                     "sass": sass}}
     report["stem_calls"] = row
     return row
 
@@ -687,6 +772,24 @@ def compare_detections(got, want, img, tol=1e-4):
     return err, n_keep
 
 
+def exact_stem_forward(torch, record, site, fn, x):
+    """fn(x), an all-f32 forward, with the stem's counters set to 0 just
+    before and read just after: it must launch the exact stem (csrc/stem.cu)
+    once and the fast one never. Records the exact launches under `site`."""
+    from custom_d_fine_tpu_torch.ops.stem import stem_fwd
+
+    stem_fwd.launches = stem_fwd.fast_launches = 0
+    out = fn(x)
+    torch.cuda.synchronize()
+    exact, fast = stem_fwd.launches - stem_fwd.fast_launches, stem_fwd.fast_launches
+    log(f"[{site}] f32 forward: {exact} exact stem launch(es), {fast} fast (expected 1, 0)")
+    if (exact, fast) != (1, 0):
+        raise AssertionError(f"{site}: an f32 forward launched the exact stem {exact} times "
+                             f"and the fast one {fast} times (expected 1 and 0)")
+    record.setdefault("exact_stem_launches", {})[site] = exact
+    return out
+
+
 def phase_serving(torch, report):
     from custom_d_fine_tpu_torch.configs import get_model_config
     from custom_d_fine_tpu_torch.deploy.reparam import convert_to_deploy
@@ -741,7 +844,7 @@ def phase_serving(torch, report):
     want = cpu_fn(x1.cpu())
     log(f"[serve] CPU forward bs1 in {time.perf_counter() - t0:.1f} s")
     exact_fn = make_serving_forward(gpu_model, IMG, msda_value_dtype=None, stem_fast=False)
-    got = exact_fn(x1)
+    got = exact_stem_forward(torch, report, "serve", exact_fn, x1)
     err, n_keep = compare_detections(got, want, IMG)
     log(f"[serve] card (f32, TF32 off) vs CPU, bs1: scores max_abs_err={err:.3e} (1e-4); "
         f"labels/boxes equal on {n_keep} tie-robust detections")
@@ -1541,7 +1644,9 @@ def segment_serving(torch, out):
     want_same = make_serving_forward(copy.deepcopy(ref), IMG, msda_value_dtype=torch.bfloat16,
                                      stem_fast=True)(x1.cpu())
     gpu = ref.cuda()
-    got_f32 = make_serving_forward(gpu, IMG, msda_value_dtype=None, stem_fast=False)(x1)
+    got_f32 = exact_stem_forward(
+        torch, out, "segment",
+        make_serving_forward(gpu, IMG, msda_value_dtype=None, stem_fast=False), x1)
     got = make_serving_forward(gpu, IMG)(x1)
     err, _ = compare_detections(got_f32, want_f32, IMG)
     merr, n_keep = compare_masks(got_f32, want_f32)
@@ -2111,8 +2216,10 @@ def options_serving(torch, out, option, device="cuda", img=IMG, model_name="m"):
             ("same_modes", SERVED_SAME_TOL, {},
              dict(msda_value_dtype=torch.bfloat16, stem_fast=True))):
         flips = DiscreteFlips(torch) if option == "discrete" else None
-        got_det, got = serve_captured(torch, make_serving_forward(card, img, **card_kw), x1,
-                                      flips and flips.record)
+        card_fn = make_serving_forward(card, img, **card_kw)
+        serve = lambda x: serve_captured(torch, card_fn, x, flips and flips.record)  # noqa: E731
+        got_det, got = (exact_stem_forward(torch, out, f"options {option}", serve, x1)
+                        if mode == "f32" else serve(x1))
         want_det, want = serve_captured(torch, make_serving_forward(cpu, img, **cpu_kw),
                                         x1.cpu(), flips and flips.follow)
         worst, n_q, n_edge = compare_raw(torch, got, want, option, tol)
@@ -2356,6 +2463,12 @@ def main() -> int:
             by_path = {p: c.get(row["name"], 0) for p, c in paths.items()}
             row["launches"] = sum(by_path.values()) if paths else None
             row["launches_by_path"] = by_path
+        # the exact stem: once in each all-f32 comparison forward (every main
+        # path's stem launches are fast, as each phase checks)
+        rows[0]["exact"]["launches_f32_compare"] = {
+            **report.get("exact_stem_launches", {}),
+            **report.get("segment", {}).get("exact_stem_launches", {}),
+            **report.get("options", {}).get("exact_stem_launches", {})}
     except Exception as e:  # noqa: BLE001 - any failed phase fails the run
         import traceback
 

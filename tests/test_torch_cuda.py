@@ -44,14 +44,19 @@ def _stem(M, O, use_lab, seed=0):
     return stem
 
 
-@pytest.mark.parametrize("M,O,use_lab,hw", [
-    (24, 32, True, (64, 96)),
-    (16, 16, False, (36, 44)),   # H % 32 != 0; ragged 8x8 output tiles
-    (32, 48, True, (32, 32)),
+@pytest.mark.parametrize("M,O,use_lab,hw,B", [
+    (24, 32, True, (64, 96), 2),
+    (16, 16, False, (36, 44), 2),    # H % 32 != 0; ragged 10x10 output tiles
+    (32, 48, True, (32, 32), 2),
+    (32, 64, True, (40, 48), 2),     # the B5 stem's widths
+    (48, 96, False, (32, 32), 2),    # the B6 stem's widths (one CTA an SM)
+    (24, 32, False, (52, 84), 3),    # 13x21 outputs: ragged tiles in both directions
+    (24, 32, True, (640, 640), 16),  # D-FINE-m's stem at bs16 640^2
+    (8, 4, True, (44, 40), 1),       # convs with fewer outputs than a group: groups of 4
 ])
-def test_stem_kernel_matches_plain(dev, M, O, use_lab, hw):
+def test_stem_kernel_matches_plain(dev, M, O, use_lab, hw, B):
     fw = fold_stem_weights(_stem(M, O, use_lab).to(dev))
-    x = torch.randint(0, 256, (2, *hw, 3), dtype=torch.uint8, device=dev)
+    x = torch.randint(0, 256, (B, *hw, 3), dtype=torch.uint8, device=dev)
     n = stem_fwd.launches
     got = stem_fwd(x, fw)
     torch.cuda.synchronize()

@@ -66,6 +66,8 @@ def _both(use_lab, M, O, hw):
     (False, 32, 48, (32, 32)),
     (False, 24, 32, (128, 64)),
     (True, 24, 32, (36, 44)),    # H % 32 != 0, H % 4 == 0: the port's kernel takes it
+    (True, 32, 64, (32, 40)),    # the B5 stem's widths (D-FINE-x)
+    (False, 48, 96, (32, 32)),   # the B6 stem's widths
 ])
 def test_stem_matches_flax_and_interpret_kernel(use_lab, M, O, hw):
     x, xt, v, want, stem = _both(use_lab, M, O, hw)
