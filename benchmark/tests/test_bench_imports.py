@@ -1,0 +1,56 @@
+"""The import check: nothing the benchmark runs loads JAX or the JAX package
+(top-level names compared whole: the port's name begins with the JAX
+package's), and the reference loads nothing of the port either."""
+
+import subprocess
+import sys
+
+from benchmark.harness import FORBIDDEN, ROOT, forbidden_modules
+
+PROBE = "import sys, json; {imports}; print(json.dumps(sorted(sys.modules)))"
+
+
+def _modules(imports: str):
+    out = subprocess.run([sys.executable, "-c", PROBE.format(imports=imports)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300, check=True)
+    return __import__("json").loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_names_are_compared_whole():
+    assert forbidden_modules(["custom_d_fine_tpu_torch.ops", "jaxtyping", "flax_x"]) == []
+    assert forbidden_modules(["custom_d_fine_tpu.models", "jax._src", "optax"]) == \
+        ["custom_d_fine_tpu", "jax", "optax"]
+
+
+def test_the_run_and_its_program_load_nothing_forbidden():
+    mods = _modules("import benchmark.run, benchmark.control, benchmark.runners.train, "
+                    "benchmark.faults; "
+                    "import custom_d_fine_tpu_torch.train.train_step, "
+                    "custom_d_fine_tpu_torch.configs")
+    assert "custom_d_fine_tpu_torch" in {m.split(".")[0] for m in mods}
+    assert forbidden_modules(mods) == []
+
+
+def test_the_reference_loads_nothing_of_the_port():
+    mods = _modules("import pkgutil, importlib, benchmark.reference.dfine as d; "
+                    "[importlib.import_module(m.name) for m in "
+                    "pkgutil.walk_packages(d.__path__, d.__name__ + '.')]")
+    assert any(m.startswith("benchmark.reference.dfine.train.train_step") for m in mods)
+    assert forbidden_modules(mods, extra=("custom_d_fine_tpu_torch",)) == []
+
+
+def test_the_reference_sources_import_only_inside_the_copy():
+    for path in (ROOT / "benchmark" / "reference").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                top = s.split()[1].split(".")[0]
+                assert top not in (*FORBIDDEN, "custom_d_fine_tpu_torch", "benchmark"), (path, s)
+
+
+def test_a_run_without_a_card_prints_no_result():
+    out = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload",
+                          "dfine-m.train", "--seed", "1", "--seconds", "1", "--trace", "0"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0 and out.stdout.strip() == ""

@@ -1,0 +1,72 @@
+"""BENCHMARK.json against its contract, and every name resolving to its files."""
+
+import json
+import re
+
+import pytest
+
+from benchmark.runners.common import config_dict
+from benchmark.harness import HERE, ROOT, find_cell, load_json, load_reader
+from benchmark.reference.dfine.configs import get_model_config as ref_config
+
+SPEC = load_json(ROOT / "BENCHMARK.json")
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+CELLS = [w["name"] for w in SPEC["workloads"]]
+
+
+def test_top_level_keys_and_sizes():
+    assert set(SPEC) == {"command", "paths", "run_seconds", "configs", "workloads",
+                         "end_to_end", "per_layer"}
+    assert len(json.dumps(SPEC)) <= 64 * 1024
+    assert 1 <= SPEC["run_seconds"] <= 51 and isinstance(SPEC["run_seconds"], int)
+    assert SPEC["paths"] == ["benchmark"] and len(SPEC["command"]) <= 32
+    assert 1 <= len(SPEC["workloads"]) <= 24 and 1 <= len(SPEC["configs"]) <= 24
+    four = [w for w in SPEC["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(SPEC["workloads"]) // 4)
+
+
+def test_names_units_and_keys():
+    for c in SPEC["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert NAME.match(c["name"]) and 1 <= len(c["source"]) <= 200 and len(c["why"]) <= 200
+        assert c["file"].startswith("benchmark/") and (ROOT / c["file"]).is_file()
+    for w in SPEC["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and len(w["why"]) <= 200
+    names = [m["name"] for m in SPEC["end_to_end"] + SPEC["per_layer"]]
+    assert len(names) == len(set(names)) and len(CELLS) == len(set(CELLS))
+    for m in SPEC["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
+        assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25
+    for m in SPEC["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
+        assert m["moves"] in [e["name"] for e in SPEC["end_to_end"]]
+    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+        assert set(m.get("workloads", [])) <= set(CELLS)
+    assert "setup_s" in names
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_resolves_to_its_files(cell):
+    c = find_cell(cell)
+    assert (HERE / "runners" / f"{c.traffic['kind']}.py").is_file()
+    assert (HERE / "limits" / f"{cell}.json").is_file()
+    assert "setup_s" in [m["name"] for m in c.end_to_end] and len(c.end_to_end) >= 2
+    assert c.per_layer, "every cell reports a per-layer metric"
+    for m in c.per_layer:
+        assert callable(load_reader(m["name"]))
+        assert m["moves"] in [e["name"] for e in c.end_to_end]
+
+
+@pytest.mark.parametrize("conf", [c["name"] for c in SPEC["configs"]])
+def test_config_file_is_the_registry_entry(conf):
+    from custom_d_fine_tpu_torch.configs import get_model_config as port_config
+
+    c = {x["name"]: x for x in SPEC["configs"]}[conf]
+    f = load_json(ROOT / c["file"])
+    assert f["task"] == "detect"
+    assert f["model"] == config_dict(ref_config(f["model_name"]))
+    assert f["model"] == config_dict(port_config(f["model_name"]))
+    assert f["reduced"] == c["reduced"] == []

@@ -1,0 +1,114 @@
+"""Seeded random weights for D-FINE, made on the device in a few large draws.
+
+The distributions follow the port's torch-parity initialisation
+(reference/dfine/models/dfine.py: U(+-1/sqrt(fan_in)) for conv and linear
+weights and biases, xavier for the decoder FFNs, enc_output, query_pos_head
+and 1x1 input projections, xavier on the MHA in_proj; the focal prior, the
+MSDA grid bias and the zeroed heads), with two changes that make every path of the forward depend on its
+input, so that the check that decides `correct` can see each of them:
+- every conv kernel is scaled by sqrt(6) (kaiming scale): at torch's default
+  scale the features of a random D-FINE fade through ~40 convs and its
+  query-selection scores tie to ~1e-6, so the top-K and the threshold would
+  depend on rounding alone;
+- the layers that the torch init zeroes (the box heads' last layers, the
+  MSDA sampling offsets' and attention weights' projections, the gates, the
+  LQE heads) are drawn like any other linear layer: zeroed, every box would
+  be its anchor and every sampling point and attention weight would ignore
+  the query.
+All uniform leaves come from one `torch.rand` and all normal leaves from one
+`torch.randn`, on a generator on the device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .reference.dfine.configs import ModelConfig
+from .reference.dfine.models.dfine import DFINE, _msda_offset_bias
+from .reference.dfine.models.layers import MultiHeadAttention, bias_init_with_prob
+
+CONV_SCALE = math.sqrt(6.0)
+
+
+def _fan_in(w: torch.Tensor) -> int:
+    return w.shape[1] * int(np.prod(w.shape[2:])) if w.ndim == 4 else w.shape[1]
+
+
+def _fan_out(w: torch.Tensor) -> int:
+    return w.shape[0] * int(np.prod(w.shape[2:]))
+
+
+def _draw_plan(model: DFINE) -> Tuple[List[Tuple[torch.Tensor, float]],
+                                      List[Tuple[torch.Tensor, float]]]:
+    """(uniform leaves with their bound, normal leaves with their std)."""
+    dec = model.decoder
+    xavier = set()
+    for layer in dec.decoder.layers:
+        xavier |= {id(layer.linear1), id(layer.linear2)}
+    xavier |= {id(dec.enc_output.proj), id(dec.query_pos_head.layers[0]),
+               id(dec.query_pos_head.layers[1])}
+    for proj in list(model.encoder.input_proj) + list(dec.input_proj):
+        if isinstance(proj, nn.Sequential) and proj.conv.kernel_size == (1, 1):
+            xavier.add(id(proj.conv))
+    uniform, normal = [], []
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            uniform.append((m.in_proj_weight, math.sqrt(6.0 / (4.0 * m.embed_dim))))
+        elif isinstance(m, (nn.Linear, nn.Conv2d)):
+            scale = CONV_SCALE if isinstance(m, nn.Conv2d) else 1.0
+            if id(m) in xavier:
+                b = math.sqrt(6.0 / (_fan_in(m.weight) + _fan_out(m.weight)))
+            else:
+                b = 1.0 / math.sqrt(_fan_in(m.weight))
+            uniform.append((m.weight, scale * b))
+            if m.bias is not None:
+                uniform.append((m.bias, 1.0 / math.sqrt(_fan_in(m.weight))))
+    if hasattr(dec, "denoising_class_embed"):
+        normal.append((dec.denoising_class_embed.weight, 1.0))
+    return uniform, normal
+
+
+def _fill(leaves: List[Tuple[torch.Tensor, float]], flat: torch.Tensor) -> None:
+    sizes = [t.numel() for t, _ in leaves]
+    scale = torch.repeat_interleave(
+        torch.tensor([s for _, s in leaves], device=flat.device, dtype=flat.dtype),
+        torch.tensor(sizes, device=flat.device))
+    parts = (flat * scale).split(sizes)
+    torch._foreach_copy_([t for t, _ in leaves], [p.view_as(t) for p, (t, _) in
+                                                  zip(parts, leaves)])
+
+
+@torch.no_grad()
+def make_weights(cfg: ModelConfig, num_classes: int, seed: int,
+                 device: torch.device) -> Dict[str, torch.Tensor]:
+    """The model's state_dict (f32, on `device`) for `seed`: the same seed
+    gives the same tensors on the same device type."""
+    with torch.device(device):
+        model = DFINE(cfg, num_classes=num_classes)  # constants from the modules' own init
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    uniform, normal = _draw_plan(model)
+    n_u = sum(t.numel() for t, _ in uniform)
+    n_n = sum(t.numel() for t, _ in normal)
+    _fill(uniform, torch.rand(n_u, generator=gen, device=device).mul_(2.0).sub_(1.0))
+    _fill(normal, torch.randn(n_n, generator=gen, device=device))
+    for m in model.modules():  # torch MHA zeroes both projection biases
+        if isinstance(m, MultiHeadAttention):
+            m.in_proj_bias.zero_()
+            m.out_proj.bias.zero_()
+    dec = model.decoder
+    cls_bias = bias_init_with_prob(0.01)  # the focal prior
+    dec.enc_score_head.bias.fill_(cls_bias)
+    for head in dec.dec_score_head:
+        head.bias.fill_(cls_bias)
+    d = cfg.decoder
+    grid = torch.from_numpy(_msda_offset_bias(d.nhead, d.num_points)).to(device)
+    for layer in dec.decoder.layers:  # the sampling grid around each reference point
+        layer.cross_attn.sampling_offsets.bias.copy_(grid)
+    if hasattr(dec, "denoising_class_embed"):
+        dec.denoising_class_embed.weight[-1].zero_()
+    return {k: v.detach() for k, v in model.state_dict().items()}
