@@ -1,0 +1,13 @@
+"""The share of the device's idle time in the traced window's training steps
+that falls inside `train.forward` (the uint8 cast, the denoising draws and
+their copies, the model's forward), %: benchmark/spans.py lays the program's
+spans over the profiler's device intervals, and each idle instant goes to
+the innermost phase span open at it. Nothing when the program recorded no
+spans in the window."""
+
+from benchmark.spans import idle_shares, program_spans
+
+
+def read(data):
+    shares = idle_shares(data.get("profile"), program_spans())
+    return shares["forward"] if shares else None

@@ -6,6 +6,12 @@ and for the sets that carry masks the focal + Dice mask costs, :175-237)
 are computed on the device as one [S, B, Q, G] tensor, copied to the host
 once per step and solved there exactly (ops/hungarian.py). Padded GT
 columns are masked to a high cost and their assignments dropped.
+
+Under torch.profiler a match records `train.match` with the children
+`train.match.costs`, `train.match.copy` (counts `bytes` device to host,
+`cells` copied, `valid_cells`: the copied entries of valid GT columns),
+`train.match.solve` (`solves`: linear_sum_assignment calls) and
+`train.match.upload` (`bytes` host to device); utils/profiling.py.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from ..configs.registry import MatcherConfig
 from ..ops.boxes import box_cxcywh_to_xyxy, generalized_box_iou_pairwise
 from ..ops.hungarian import host_go_union, host_solve
+from ..utils.profiling import span
 
 
 @torch.no_grad()
@@ -73,15 +80,24 @@ def match_topk(cost: torch.Tensor, gt_valid: torch.Tensor, k: int) -> torch.Tens
     k rounds of exact assignment, each masking out (cost 1e6) the queries the
     earlier rounds took, so every GT gets k distinct queries.
     cost [B, Q, G], gt_valid [B, G] -> assign [k, B, G] (-1 for invalid GTs)."""
-    n_valid = gt_valid.sum(-1).cpu().numpy()
-    c = torch.where(gt_valid[:, None, :], cost.float(), 1e6).cpu().numpy()
-    rounds = []
-    for _ in range(k):
-        a = host_solve(c[None], n_valid)[0]                  # [B, G]
-        rounds.append(a)
-        for b, g in zip(*((a >= 0) & gt_valid.cpu().numpy()).nonzero()):
-            c[b, a[b, g]] = 1e6
-    return torch.from_numpy(np.stack(rounds)).to(cost.device)
+    with span("train.match"):
+        with span("train.match.copy") as sp:
+            n_valid = gt_valid.sum(-1).cpu().numpy()
+            c = torch.where(gt_valid[:, None, :], cost.float(), 1e6).cpu().numpy()
+            valid_h = gt_valid.cpu().numpy()
+            sp.count(bytes=n_valid.nbytes + c.nbytes + valid_h.nbytes, cells=c.size,
+                     valid_cells=c.shape[1] * int(n_valid.sum()))
+        rounds = []
+        with span("train.match.solve", solves=k * int((n_valid > 0).sum())):
+            for _ in range(k):
+                a = host_solve(c[None], n_valid)[0]                  # [B, G]
+                rounds.append(a)
+                for b, g in zip(*((a >= 0) & valid_h).nonzero()):
+                    c[b, a[b, g]] = 1e6
+        with span("train.match.upload") as sp:
+            assign = np.stack(rounds)
+            sp.count(bytes=assign.nbytes)
+            return torch.from_numpy(assign).to(cost.device)
 
 
 @torch.no_grad()
@@ -101,13 +117,22 @@ def match_all_sets(output_sets: List[Dict[str, torch.Tensor]],
             c = c + mask_matching_cost(o["pred_masks"], targets["masks"], cfg)
         return c
 
-    costs = torch.stack([set_cost(o) for o in output_sets])
-    valid = targets["valid"]
-    costs = torch.where(valid[None, :, None, :], costs, 1e6)
-    n_valid = valid.sum(-1).cpu().numpy()
-    assign = host_solve(costs.cpu().numpy(), n_valid)
-    num_queries = output_sets[0]["pred_logits"].shape[1]
-    go_g, go_valid = host_go_union(assign, n_valid, num_queries)
-    dev = valid.device
-    return (torch.from_numpy(assign).to(dev), torch.from_numpy(go_g).to(dev),
-            torch.from_numpy(go_valid).to(dev))
+    with span("train.match"):
+        with span("train.match.costs"):
+            valid = targets["valid"]
+            costs = torch.where(valid[None, :, None, :],
+                                torch.stack([set_cost(o) for o in output_sets]), 1e6)
+        with span("train.match.copy") as sp:
+            n_valid = valid.sum(-1).cpu().numpy()
+            costs = costs.cpu().numpy()
+            S, _, Q, _ = costs.shape
+            sp.count(bytes=costs.nbytes + n_valid.nbytes, cells=costs.size,
+                     valid_cells=S * Q * int(n_valid.sum()))
+        with span("train.match.solve", solves=S * int((n_valid > 0).sum())):
+            assign = host_solve(costs, n_valid)
+            go_g, go_valid = host_go_union(assign, n_valid, Q)
+        with span("train.match.upload") as sp:
+            dev = valid.device
+            sp.count(bytes=assign.nbytes + go_g.nbytes + go_valid.nbytes)
+            return (torch.from_numpy(assign).to(dev), torch.from_numpy(go_g).to(dev),
+                    torch.from_numpy(go_valid).to(dev))

@@ -13,6 +13,11 @@ host's dispatch cost and is not ported.
 registry, as tools/bench_train.py:36-58 and train/trainer.py:160-190 do. Like
 build_serving it runs on the card unless the caller asks for the CPU, and
 raises when there is no card.
+
+Under torch.profiler a step records spans (utils/profiling.py): the root
+`train.step` (count `images`), then `train.forward`, `train.loss` (which
+holds the matcher's `train.match`, train/matcher.py), `train.backward`,
+`train.optimizer` and `train.ema`.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ..models.denoising import dn_layout, draw_dn_noise
 from ..models.dfine import DFINE, build_model
 from ..ops.postprocess import topk_detections
 from ..parallel.dist import batch_rows
+from ..utils.profiling import span
 from .criterion import DFINECriterion, with_mask_losses
 from .ema import ema_update
 from .optim import Optimizer
@@ -71,34 +77,40 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator):
-        model = state.model.train()
         images = batch["images"]
-        if images.dtype == torch.uint8:  # the wire format
-            images = images.float() / 255.0
-        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        targets = {k: batch[k] for k in ("labels", "boxes", "valid", "image_valid", "masks")
-                   if k in batch}
-        dec = model.decoder
-        draws = None
-        if dec.num_denoising > 0:  # this process's rows of the global batch's draws
-            _, num_dn, _ = dn_layout(dec.num_denoising, dec.dn_max_gt, dec.num_queries)
-            start, total = batch_rows(x.shape[0])
-            draws = {k: v[start:start + x.shape[0]].to(x.device) for k, v in draw_dn_noise(
-                generator, total, num_dn, dec.num_classes).items()}
-        with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            outputs = model(x, targets=targets, dn_draws=draws,
-                            msda_value_dtype=torch.bfloat16 if bf16 else None)
-        losses = criterion(outputs, targets)
-        total = torch.stack(list(losses.values())).sum()
-        state.optimizer.zero_grad()
-        total.backward()
-        grad_norm = state.optimizer.step()
-        state.step += 1
-        if state.ema is not None and state.step % b_accum_steps == 0:
-            ema_update(state.ema, model.state_dict(), state.step // b_accum_steps,
-                       ema_momentum)
-        metrics = {"total_loss": total.detach(), "grad_norm": grad_norm}
-        metrics.update({k: v.detach() for k, v in losses.items()})
+        with span("train.step", images=images.shape[0]):
+            with span("train.forward"):
+                model = state.model.train()
+                if images.dtype == torch.uint8:  # the wire format
+                    images = images.float() / 255.0
+                x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+                targets = {k: batch[k] for k in ("labels", "boxes", "valid", "image_valid",
+                                                 "masks") if k in batch}
+                dec = model.decoder
+                draws = None
+                if dec.num_denoising > 0:  # this process's rows of the global batch's draws
+                    _, num_dn, _ = dn_layout(dec.num_denoising, dec.dn_max_gt, dec.num_queries)
+                    start, total = batch_rows(x.shape[0])
+                    draws = {k: v[start:start + x.shape[0]].to(x.device) for k, v in
+                             draw_dn_noise(generator, total, num_dn, dec.num_classes).items()}
+                with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+                    outputs = model(x, targets=targets, dn_draws=draws,
+                                    msda_value_dtype=torch.bfloat16 if bf16 else None)
+            with span("train.loss"):
+                losses = criterion(outputs, targets)
+                total = torch.stack(list(losses.values())).sum()
+            with span("train.backward"):
+                state.optimizer.zero_grad()
+                total.backward()
+            with span("train.optimizer"):
+                grad_norm = state.optimizer.step()
+            state.step += 1
+            if state.ema is not None and state.step % b_accum_steps == 0:
+                with span("train.ema"):
+                    ema_update(state.ema, model.state_dict(), state.step // b_accum_steps,
+                               ema_momentum)
+            metrics = {"total_loss": total.detach(), "grad_norm": grad_norm}
+            metrics.update({k: v.detach() for k, v in losses.items()})
         return state, metrics
 
     return train_step

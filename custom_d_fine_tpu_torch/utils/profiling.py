@@ -1,42 +1,130 @@
-"""Profiling and device-memory observability on the card (PyTorch),
-counterpart of custom_d_fine_tpu/utils/profiling.py.
+"""Profiling on the card (PyTorch): the program's own spans, and the device
+events that torch.profiler records.
 
 The reference's perf observability is wall-clock timing plus nvidia-smi
 polling (dl/utils.py:130-157). Here:
+- `span(name, **counts)`: a named interval of the program's host time, with
+  its parent span, the step it belongs to (the sequence number of its root
+  span) and counts taken at the same boundary. Spans record only while
+  torch.profiler records; each also opens `record_function(name)`, so an
+  exported trace (`export_chrome_trace`, TensorBoard) shows it. `spans()`
+  returns the recorded ones, oldest first, from a bounded buffer;
+  `clear_spans()` empties it. Their clock is the profiler's (`clock_ns`),
+  so a span can be laid over the profiler's device events;
 - `device_spans` / `busy_ms` / `events_by_name`: the device events (kernels,
   copies, fills) that torch.profiler records, the time the device was busy
-  (the union of the events' intervals) and device time by kernel name;
-- `trace` / `summarize_trace`: run a callable under the profiler and sum its
-  device ms by kernel name, heaviest first;
-- `device_memory_stats`: per-card memory in use, peak and total
-  (torch.cuda.memory_stats / mem_get_info; the nvidia-smi equivalent);
-- `StepTimer`: steady-state host time per call, closed by
-  torch.cuda.synchronize() (the TPU's fetch-to-sync protocol does not
-  apply: a synchronise waits for the card's queue).
+  (the union of the events' intervals) and device time by kernel name.
+
+The kernels' launch counters (`ops/stem.py`, `ops/msda.py`) count always
+and are not spans.
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 import time
-from collections import defaultdict
-from typing import Callable, Dict, List, Tuple
+from collections import deque
+from typing import Callable, Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+MAX_SPANS = 1 << 16  # the buffer keeps the newest spans
 
-def device_memory_stats() -> List[Dict[str, float]]:
-    out = []
-    for i in range(torch.cuda.device_count()):
-        s = torch.cuda.memory_stats(i)
-        free, total = torch.cuda.mem_get_info(i)
-        out.append({
-            "device": f"cuda:{i} {torch.cuda.get_device_name(i)}",
-            "bytes_in_use_mb": s.get("allocated_bytes.all.current", 0) / 1e6,
-            "peak_bytes_mb": s.get("allocated_bytes.all.peak", 0) / 1e6,
-            "bytes_limit_mb": total / 1e6,
-            "free_mb": free / 1e6,
-        })
-    return out
+# The one gate: spans record only while torch.profiler records.
+_profiler_on = torch.autograd._profiler_enabled
+
+
+def clock_ns() -> int:
+    """The spans' clock: Unix-epoch ns, the clock of the profiler's events
+    (kineto's start_ns())."""
+    return time.time_ns()
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    seq: int               # this span's sequence number
+    parent: Optional[int]  # the enclosing span's seq; None for a root
+    step: int              # the root span's seq: shared by the spans of one step
+    counts: Dict[str, int]
+
+
+_SPANS: Deque[Span] = deque(maxlen=MAX_SPANS)
+_SEQ = itertools.count()
+_OPEN = threading.local()  # .stack: this thread's open spans, innermost last
+
+
+def _stack() -> List["_Open"]:
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    return stack
+
+
+class _Off:
+    """What `span` returns while no profiler records: does nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def count(self, **counts: int) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Open:
+    __slots__ = ("name", "counts", "seq", "parent", "step", "start_ns", "_annotation")
+
+    def __init__(self, name: str, counts: Dict[str, int]):
+        self.name, self.counts, self.seq = name, counts, next(_SEQ)
+
+    def count(self, **counts: int) -> None:
+        """Add to this span's counts."""
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
+
+    def __enter__(self):
+        stack = _stack()
+        outer = stack[-1] if stack else None
+        self.parent = outer.seq if outer else None
+        self.step = outer.step if outer else self.seq
+        stack.append(self)
+        self.start_ns = clock_ns()
+        self._annotation = torch.autograd.profiler.record_function(self.name)
+        self._annotation.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._annotation.__exit__(*exc)
+        end = clock_ns()
+        _stack().pop()
+        _SPANS.append(Span(self.name, self.start_ns, end, self.seq, self.parent, self.step,
+                           self.counts))
+        return False
+
+
+def span(name: str, **counts: int):
+    """`with span("train.match.copy", bytes=n) as sp: ...; sp.count(cells=m)`.
+    Records while torch.profiler records; otherwise returns a shared no-op."""
+    if not _profiler_on():
+        return _OFF
+    return _Open(name, counts)
+
+
+def spans() -> List[Span]:
+    """The recorded spans, in the order they closed."""
+    return list(_SPANS)
+
+
+def clear_spans() -> None:
+    _SPANS.clear()
 
 
 def device_spans(fn: Callable, n: int) -> List[Tuple[str, int, int]]:
@@ -83,42 +171,3 @@ def events_by_name(fn: Callable, n: int = 10) -> List[Dict]:
         by_name[name] = (t + d, c + 1)
     return [{"kernel": k[:120], "ms": t / 1e6 / n, "calls": c / n}
             for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])]
-
-
-def trace(fn: Callable, *args, n: int = 1, top_k: int = 25):
-    """Run fn(*args) n times under the profiler; return (the last result,
-    summarize_trace of its device events)."""
-    result = []
-
-    def call():
-        result[:] = [fn(*args)]
-
-    spans = device_spans(call, n)
-    return result[0], summarize_trace(spans, top_k=top_k, n=n)
-
-
-def summarize_trace(spans, top_k: int = 25, n: int = 1) -> List[Tuple[str, float]]:
-    """Device ms by kernel name per call (of n), heaviest first."""
-    durations: Dict[str, float] = defaultdict(float)
-    for name, _, d in spans:
-        durations[name] += d / 1e6 / n
-    return sorted(durations.items(), key=lambda kv: -kv[1])[:top_k]
-
-
-class StepTimer:
-    """Steady-state host ms per call of fn: n calls dispatched back to back,
-    then one torch.cuda.synchronize(), as the JAX package's pipelined
-    protocol dispatches n calls and fetches once."""
-
-    def __init__(self, fn: Callable):
-        self.fn = fn
-
-    def measure(self, *args, n: int = 100, warmup: int = 5) -> float:
-        for _ in range(warmup):
-            self.fn(*args)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            self.fn(*args)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1000 / n
