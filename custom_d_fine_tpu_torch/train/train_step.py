@@ -7,7 +7,10 @@ bf16: the JAX package's dtype=bfloat16 graph becomes torch.autocast(bfloat16)
 around the forward, with the MSDA value map in bf16 as its pallas_sep_fast
 takes it; the criterion runs in f32, as in both (train.py:569-575). The JAX
 package's make_train_multi_step (a lax.scan over K steps) hides its TPU
-host's dispatch cost and is not ported.
+host's dispatch cost; its counterpart here reaches the backbone and the
+hybrid encoder, which replay as CUDA graphs, forward and backward, on the
+card (train/graphs.py); the decoder, the criterion and the update stay
+eager.
 
 `build_training` assembles model, criterion, optimizer and state from the
 registry, as tools/bench_train.py:36-58 and train/trainer.py:160-190 do. Like
@@ -15,7 +18,8 @@ build_serving it runs on the card unless the caller asks for the CPU, and
 raises when there is no card.
 
 Under torch.profiler a step records spans (utils/profiling.py): the root
-`train.step` (count `images`), then `train.forward`, `train.loss` (which
+`train.step` (count `images`), then `train.forward` (counts `graph_units`,
+`eager_units`, `captures`: train/graphs.py), `train.loss` (which
 holds the matcher's `train.match`, train/matcher.py), `train.backward`,
 `train.optimizer` and `train.ema`.
 """
@@ -36,6 +40,7 @@ from ..parallel.dist import batch_rows
 from ..utils.profiling import span
 from .criterion import DFINECriterion, with_mask_losses
 from .ema import ema_update
+from .graphs import FrontGraphs
 from .optim import Optimizer
 
 
@@ -73,13 +78,16 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
     matcher's one copy of the costs). Under torch.distributed each process
     passes its rows of the global batch and the same `generator` state; the
     loss terms are then this process's shares of the global batch's
-    (train/criterion.py), and grad_norm is the global batch's."""
+    (train/criterion.py), and grad_norm is the global batch's. On the card the
+    model's front replays CUDA graphs kept by this step function, in
+    `step.graphs` (train/graphs.py)."""
+    graphs = FrontGraphs()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator):
         images = batch["images"]
         with span("train.step", images=images.shape[0]):
-            with span("train.forward"):
+            with span("train.forward") as sp:
                 model = state.model.train()
                 if images.dtype == torch.uint8:  # the wire format
                     images = images.float() / 255.0
@@ -93,9 +101,11 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
                     start, total = batch_rows(x.shape[0])
                     draws = {k: v[start:start + x.shape[0]].to(x.device) for k, v in
                              draw_dn_noise(generator, total, num_dn, dec.num_classes).items()}
-                with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
+                with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16), \
+                        graphs.engaged(model, x) as counts:
                     outputs = model(x, targets=targets, dn_draws=draws,
                                     msda_value_dtype=torch.bfloat16 if bf16 else None)
+                sp.count(**counts)
             with span("train.loss"):
                 losses = criterion(outputs, targets)
                 total = torch.stack(list(losses.values())).sum()
@@ -113,6 +123,7 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
             metrics.update({k: v.detach() for k, v in losses.items()})
         return state, metrics
 
+    train_step.graphs = graphs
     return train_step
 
 

@@ -11,6 +11,7 @@ a machine that has only the port:
 """
 
 import copy
+import functools
 import socket
 
 import pytest
@@ -475,3 +476,158 @@ def test_profiling_helpers_read_the_card(dev):
     profiling.clear_spans()
     ev = profiling.events_by_name(lambda: a @ a, n=2)
     assert ev and ev[0]["calls"] >= 1
+
+
+# ------------------------------------------------- the training step's CUDA graphs
+
+def _train_batches(dev, n, B, img, seed=5, max_gt=100, n_gt=12):
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        b = {"images": torch.randint(0, 256, (B, img, img, 3), dtype=torch.uint8, generator=g),
+             "labels": torch.randint(0, 80, (B, max_gt), generator=g),
+             "boxes": torch.cat([torch.rand(B, max_gt, 2, generator=g) * 0.6 + 0.2,
+                                 torch.rand(B, max_gt, 2, generator=g) * 0.25 + 0.05], -1),
+             "valid": (torch.arange(max_gt) < n_gt)[None].expand(B, -1).contiguous()}
+        out.append({k: v.to(dev) for k, v in b.items()})
+    return out
+
+
+def _step_parts(state, metrics):
+    """What a training step leaves, by kind, on the host in f64."""
+    adam = state.optimizer.adamw.state
+    named = dict(state.model.named_parameters())
+
+    def host(d):
+        return {k: v.detach().double().cpu() for k, v in d.items()}
+
+    return {"loss terms": host({k: v for k, v in metrics.items() if k != "grad_norm"}),
+            "grad_norm": host({"grad_norm": metrics["grad_norm"]}),
+            "gradients": host({k: p.grad for k, p in named.items() if p.grad is not None}),
+            "BN buffers": host(dict(state.model.named_buffers())),
+            "exp_avg": host({k: adam[p]["exp_avg"] for k, p in named.items() if p in adam}),
+            "exp_avg_sq": host({k: adam[p]["exp_avg_sq"] for k, p in named.items()
+                                if p in adam}),
+            "EMA": host(state.ema),
+            "parameters": host(named)}
+
+
+def _gap(a, b) -> float:
+    """||a - b|| / ||b|| over every tensor of two equal-keyed dicts together."""
+    assert a.keys() == b.keys()
+    num = sum(float(torch.linalg.vector_norm(a[k] - b[k])) ** 2 for k in b)
+    den = sum(float(torch.linalg.vector_norm(b[k])) ** 2 for k in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _counters(graphs):
+    return graphs.replays, graphs.captures, graphs.eager
+
+
+def test_graphed_training_steps_match_eager_steps(dev, monkeypatch):
+    """train/graphs.py on D-FINE-m, bs4 640^2, bf16 autocast. 3 steps with the
+    backbone and encoder replayed as CUDA graphs (the first captures them),
+    each against three eager steps from a copy of the same state, batch and
+    denoising draws (conv kernels x sqrt(6), so that the query selection
+    does not tie): one as the step runs, one on a side stream, one on a side
+    stream with autocast's weight cache off, as a capture runs. Each gap
+    (||graphed - eager|| / ||eager|| over all the tensors of one kind after
+    the step: its loss terms, grad_norm, every gradient, the BN buffers,
+    AdamW's moments, the EMA, the parameters) is bounded by twice the
+    largest gap between the eager steps of any of the 3 (for grad_norm, one
+    number, also by twice that of the gradients it is the norm of, which
+    bounds it), or by 1e-6 where they agree exactly. That is the noise a
+    graph brings: cuBLAS and cuDNN pick their algorithms per stream and
+    workspace, and a weight cast once or per use sums its bf16 gradient
+    otherwise. On the H100 the eager steps of one step agree to ~4e-7 at
+    one step and differ by ~2.6e-2 at the next (the backbone's scalar
+    affine parameters' gradients, the worst conditioned), grad_norm by up
+    to 5e-4, whichever way they run; so one step's eager gap does not show
+    the noise, and the largest over the 3 does.
+    Step 1's BN buffers are bit-equal: warm-up and capture leave them as
+    they found them. Then, on the graphed state: a forward hook on stages[1]
+    fires on every replay and sees the replayed output (its static buffer,
+    the same on every step); a hook inside stages[1] runs that unit eagerly
+    (a new key, 5 units captured) and the counters say so; a second input
+    shape captures its own graphs."""
+    import math
+
+    from custom_d_fine_tpu_torch.configs import get_model_config
+    from custom_d_fine_tpu_torch.models.dfine import build_model
+    from custom_d_fine_tpu_torch.train import graphs
+    from custom_d_fine_tpu_torch.train.train_step import build_training
+
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's defaults; autocast runs in bf16
+    autocast = torch.autocast
+    ref = build_model(get_model_config("m"), num_classes=80, seed=1)
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(math.sqrt(6.0))
+    step, state = build_training("m", 80, seed=0, bf16=True, state_dict=ref.state_dict())
+    eager_step, _ = build_training("m", 80, seed=0, bf16=True)
+    batches = _train_batches(dev, 5, 4, 640)
+    gen = torch.Generator().manual_seed(3)
+    gaps, noise = {}, {}  # by kind: graphed vs eager each step; the largest eager vs eager
+    for i, b in enumerate(batches[:3]):
+        drawn = gen.get_state()
+        copies = [copy.deepcopy(state) for _ in range(3)]
+        before = _counters(graphs)
+        state, m = step(state, b, gen)
+        got = _step_parts(state, m)
+        assert tuple(a - c for a, c in zip(_counters(graphs), before)) == \
+            ((6, 6, 0) if i == 0 else (6, 0, 0))
+        monkeypatch.setattr(graphs, "MAX_KEYS", 0)  # the eager steps keep no key
+        eager = []
+        for e, side, cache in zip(copies, (False, True, True), (True, True, False)):
+            gen.set_state(drawn)
+            stream = torch.cuda.Stream() if side else torch.cuda.current_stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            monkeypatch.setattr(torch, "autocast", functools.partial(autocast,
+                                                                     cache_enabled=cache))
+            with torch.cuda.stream(stream):
+                e, m = eager_step(e, b, gen)
+            torch.cuda.synchronize()
+            eager.append(_step_parts(e, m))
+        monkeypatch.undo()
+        if i == 0:
+            assert all(torch.equal(got["BN buffers"][k], eager[0]["BN buffers"][k])
+                       for k in got["BN buffers"])
+        for kind in got:
+            gaps.setdefault(kind, []).append(_gap(got[kind], eager[0][kind]))
+            noise[kind] = max([noise.get(kind, 0.0)] + [
+                _gap(eager[j][kind], eager[k][kind]) for j, k in ((1, 0), (2, 0), (2, 1))])
+        del copies, eager
+    # the rounding of one number is one draw: grad_norm is held to that of
+    # the gradients it is the norm of, which bounds it
+    noise["grad_norm"] = max(noise["grad_norm"], noise["gradients"])
+    for kind, per_step in gaps.items():
+        print(f"{kind}: graphed vs eager {per_step}, eager vs eager {noise[kind]:.3e}")
+        assert max(per_step) <= max(2.0 * noise[kind], 1e-6), (kind, per_step, noise[kind])
+
+    stage1 = state.model.backbone.stages[1]
+    seen = []
+    h = stage1.register_forward_hook(
+        lambda m, a, out: seen.append((out.data_ptr(), float(out.detach().float().sum()))))
+    before = _counters(graphs)
+    for b in batches[3:5]:
+        state, _ = step(state, b, gen)
+    h.remove()
+    (chain,) = step.graphs.chains.values()
+    static = chain.units[2].outputs[0]
+    assert [p for p, _ in seen] == [static.data_ptr()] * 2
+    assert all(math.isfinite(s) for _, s in seen)
+    assert tuple(a - c for a, c in zip(_counters(graphs), before)) == (12, 0, 0)
+
+    inner = stage1.blocks[0].register_forward_hook(lambda m, a, out: None)
+    before = _counters(graphs)
+    state, m = step(state, batches[0], gen)
+    inner.remove()
+    assert tuple(a - c for a, c in zip(_counters(graphs), before)) == (5, 5, 1)
+    assert math.isfinite(float(m["total_loss"])) and len(step.graphs.chains) == 2
+
+    before = _counters(graphs)
+    state, m = step(state, _train_batches(dev, 1, 4, 576, seed=9)[0], gen)
+    state, m = step(state, batches[1], gen)
+    assert tuple(a - c for a, c in zip(_counters(graphs), before)) == (12, 6, 0)
+    assert math.isfinite(float(m["total_loss"])) and len(step.graphs.chains) == 3

@@ -158,3 +158,11 @@ def test_a_training_steps_counts(one_step):
     assert nbytes == S * B * Q * G * 4 + B * 8
     assert by_name["train.match.solve"].counts == {"solves": S * B}
     assert by_name["train.match.upload"].counts == {"bytes": S * B * G * 8 + B * Q * 9}
+
+
+def test_the_forward_counts_no_graph_units_on_the_cpu(one_step):
+    """train.forward counts the units replayed as CUDA graphs, those run
+    eagerly in a step that would graph them, and the captures
+    (train/graphs.py): none in a CPU step, which never graphs."""
+    (fwd,) = [s for s in one_step.spans if s.name == "train.forward"]
+    assert fwd.counts == {"graph_units": 0, "eager_units": 0, "captures": 0}
