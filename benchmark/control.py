@@ -2,6 +2,11 @@
 in one process (the benchmark's own runs never run this):
 
     python3 -m benchmark.control --workload <cell> --mode <mode> --seeds 1,2,3 --seconds 20
+    python3 -m benchmark.control --config <file> --traffic <file> --mode <mode> --seeds 1,2,3
+
+The second form takes a configuration file and a traffic mix that
+BENCHMARK.json does not list yet (the cell <config>.<traffic>, one chip), so
+that a configuration's readings can be taken before its cell exists.
 
 modes: `program` (the port as the cell runs it: the lower readings);
 `ref-bf16` (the reference under bf16 autocast in the program's place, a
@@ -9,7 +14,10 @@ witness of what bf16 alone does); `control` and `control-int8` (the next
 precision below the configuration's bf16: the reference computed in fp8, or
 in int8, lowp.py, put in the program's place); `fault:<name>` (a fault of
 faults.py planted under the timed path). Each seed prints one JSON line of
-its readings; limits are not applied."""
+its readings, the seconds of its set-up, window and check, the device's
+memory peak during the program and during the check (the reference), and
+with --profile the device ms of a program step (the busy time of a profiled
+window of 3 steps); limits are not applied. Exits 2 without a card."""
 
 from __future__ import annotations
 
@@ -18,13 +26,14 @@ import gc
 import json
 import sys
 import tempfile
+import time
 from importlib import import_module
 
 import torch
 
 from .runners.train import Train
 from .faults import STEP_FAULTS
-from .harness import find_cell, one_thread
+from .harness import ROOT, cell_from_files, find_cell, one_thread, profile_window
 from .run import limits_for
 
 
@@ -72,19 +81,51 @@ class TrainControl(Train):
         return step, state
 
 
-def main(argv=None) -> int:
+def parse(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--workload", required=True)
+    which = p.add_mutually_exclusive_group(required=True)
+    which.add_argument("--workload", help="a cell of BENCHMARK.json")
+    which.add_argument("--config", help="a configuration file (with --traffic)")
+    p.add_argument("--traffic", help="a traffic mix file (with --config)")
     p.add_argument("--mode", default="program")
     p.add_argument("--seeds", required=True)
     p.add_argument("--seconds", type=float, default=20.0)
+    p.add_argument("--profile", action="store_true",
+                   help="program mode: the device ms of a step from a profiled window")
     args = p.parse_args(argv)
-    cell = find_cell(args.workload)
+    if (args.config is None) != (args.traffic is None):
+        p.error("--config and --traffic go together")
+    mode = args.mode.split(":", 1)
+    if args.mode not in ("program", "control", "control-int8", "ref-bf16") and not (
+            mode[0] == "fault" and len(mode) == 2 and mode[1] in STEP_FAULTS):
+        p.error(f"--mode {args.mode!r}: program, control, control-int8, ref-bf16 or "
+                f"fault:<{'|'.join(STEP_FAULTS)}>")
+    return args
+
+
+def cell_of(args):
+    """The cell named by --workload, or made from --config and --traffic,
+    with the limits of its cell where BENCHMARK.json has one."""
+    if args.workload is not None:
+        cell = find_cell(args.workload)
+        return cell, limits_for(cell.name)
+    cell = cell_from_files(args.config, args.traffic)
+    listed = (ROOT / "benchmark" / "limits" / f"{cell.name}.json").is_file()
+    return cell, limits_for(cell.name) if listed else {}
+
+
+def main(argv=None) -> int:
+    args = parse(argv)
+    cell, limits = cell_of(args)
+    if not torch.cuda.is_available():
+        print("benchmark.control: no CUDA card", file=sys.stderr)
+        return 2
     runner = import_module(f"benchmark.runners.{cell.traffic['kind']}")
     one_thread(torch)
     device = torch.device("cuda", 0)
-    limits = limits_for(cell.name)
     for seed in (int(s) for s in args.seeds.split(",")):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         kw = {}
         if args.mode.startswith("fault:"):
             kw["step_wrapper"] = STEP_FAULTS[args.mode.split(":", 1)[1]]
@@ -95,15 +136,35 @@ def main(argv=None) -> int:
             run = runner.make(cell, seed, device, **kw)
         with tempfile.TemporaryDirectory(prefix="dfine_bench_") as tmp:
             run.setup(tmp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         res = run.window(args.seconds)
+        t2 = time.perf_counter()
+        step_ms = None
+        if args.profile:
+            def three_steps() -> int:
+                for _ in range(3):
+                    run._one()
+                return 3
+
+            prof = profile_window(torch, three_steps)
+            step_ms = prof.busy_s() / prof.units * 1e3
+        peak_program = torch.cuda.max_memory_allocated()
         run.release()
         gc.collect()
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t3 = time.perf_counter()
         run.check(limits)
+        torch.cuda.synchronize()
+        seconds = {"setup": t1 - t0, "window": t2 - t1, "check": time.perf_counter() - t3}
         print(json.dumps({"workload": cell.name, "mode": args.mode, "seed": seed,
                           "attempted": res["attempted"], "failed": res["failed"],
                           "metrics": res["metrics"], "readings": run.data["readings"],
-                          "worst_leaf": run.data.get("worst_leaf")}), flush=True)
+                          "worst_leaf": run.data.get("worst_leaf"), "seconds": seconds,
+                          "peak_bytes": {"program": peak_program,
+                                         "check": torch.cuda.max_memory_allocated()},
+                          "device_step_ms": step_ms}), flush=True)
         del run
         gc.collect()
         torch.cuda.empty_cache()

@@ -98,7 +98,21 @@ def wrong_selection(step: Callable) -> Callable:
     return f
 
 
-STEP_FAULTS: Dict[str, Callable] = {"unchanged_state": unchanged_state,
-                                    "half_batch": half_batch, "alter_loss": alter_loss,
-                                    "wrong_matching": wrong_matching,
-                                    "wrong_selection": wrong_selection}
+def wrong_masks(step: Callable) -> Callable:
+    """Training with the mask head: the answer's GT altered where the step
+    takes it: every GT mask rolled by 8 mask pixels along x (32 image pixels
+    at a mask of a quarter of the image), so the mask losses and costs are
+    taken against shifted masks."""
+
+    def f(state, batch, gen):
+        return step(state, dict(batch, masks=torch.roll(batch["masks"], 8, dims=-1)), gen)
+
+    return f
+
+
+# the faults that a cell without masks can have; a cell with them can have all
+DETECT_FAULTS: Dict[str, Callable] = {"unchanged_state": unchanged_state,
+                                      "half_batch": half_batch, "alter_loss": alter_loss,
+                                      "wrong_matching": wrong_matching,
+                                      "wrong_selection": wrong_selection}
+STEP_FAULTS: Dict[str, Callable] = dict(DETECT_FAULTS, wrong_masks=wrong_masks)

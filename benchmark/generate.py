@@ -33,8 +33,22 @@ def _size_classes(mix: Dict[str, Any], n: int, gen: torch.Generator, device) -> 
     return torch.repeat_interleave(torch.arange(3, device=device), counts.to(device))
 
 
-def train_pool(mix: Dict[str, Any], seed: int, num_classes: int, device
-               ) -> List[Dict[str, torch.Tensor]]:
+def _ellipse_masks(boxes: torch.Tensor, size: int) -> torch.Tensor:
+    """uint8 [n, size, size] {0,1}: for each normalised cxcywh box, the
+    pixels whose centres lie in the ellipse inscribed in the box (pi/4 of
+    its area). The mask head, its matching costs and its losses are dense
+    over every pixel, so a mask's shape changes no op's shape or work; the
+    ellipse is the simplest shape that fills part of its box. (Its share of
+    the box is not taken from COCO, which the repo does not measure.)"""
+    c = (torch.arange(size, device=boxes.device, dtype=torch.float32) + 0.5) / size
+    cx, cy, w, h = (boxes[:, i, None, None] for i in range(4))
+    u = (c[None, None, :] - cx) / (w / 2)
+    v = (c[None, :, None] - cy) / (h / 2)
+    return (u.square() + v.square() <= 1).to(torch.uint8)
+
+
+def train_pool(mix: Dict[str, Any], seed: int, num_classes: int, device,
+               mask_size: int = 0) -> List[Dict[str, torch.Tensor]]:
     """`pool` training batches of `batch` images, as the port's step takes
     them: uint8 images [B, img, img, 3], labels [B, max_gt] int64, boxes
     [B, max_gt, 4] normalised cxcywh f32, valid [B, max_gt] bool (the first
@@ -42,7 +56,11 @@ def train_pool(mix: Dict[str, Any], seed: int, num_classes: int, device
     `mean_gt` (at least 1, at most max_gt) and box sizes the COCO mix of
     small (< 32^2 px), medium and large; both multisets come from the mix's
     own `sizes_seed`, the same for every run, and --seed orders them and
-    draws the images, labels, shapes and positions."""
+    draws the images, labels, shapes and positions. Where the mix sets
+    `masks` (absent: false), each batch also holds masks [B, max_gt,
+    mask_size, mask_size] uint8 {0,1}: one mask per valid GT, made from
+    its box (_ellipse_masks), and zeros in the padding rows. They take no
+    draw, so the other tensors are those of the mix without masks."""
     B, S, G, pool = mix["batch"], mix["img"], mix["max_gt"], mix["pool"]
     n_img = pool * B
     base = torch.Generator(device=device).manual_seed(int(mix["sizes_seed"]))
@@ -73,7 +91,15 @@ def train_pool(mix: Dict[str, Any], seed: int, num_classes: int, device
     labels = torch.zeros((n_img, G), dtype=torch.long, device=device)
     labels[valid] = flat_labels
     images = _images(n_img, S, S, gen, device)
-    return [{"images": images[i * B:(i + 1) * B].contiguous(),
-             "labels": labels[i * B:(i + 1) * B].contiguous(),
-             "boxes": boxes[i * B:(i + 1) * B].contiguous(),
-             "valid": valid[i * B:(i + 1) * B].contiguous()} for i in range(pool)]
+    out = [{"images": images[i * B:(i + 1) * B].contiguous(),
+            "labels": labels[i * B:(i + 1) * B].contiguous(),
+            "boxes": boxes[i * B:(i + 1) * B].contiguous(),
+            "valid": valid[i * B:(i + 1) * B].contiguous()} for i in range(pool)]
+    if mix.get("masks", False):
+        if mask_size <= 0:
+            raise ValueError("a mix with masks needs the model's mask_size")
+        masks = torch.zeros((n_img, G, mask_size, mask_size), dtype=torch.uint8, device=device)
+        masks[valid] = _ellipse_masks(flat_boxes, mask_size)
+        for i, batch in enumerate(out):
+            batch["masks"] = masks[i * B:(i + 1) * B].contiguous()
+    return out

@@ -71,6 +71,17 @@ def find_cell(name: str, spec: Optional[Dict[str, Any]] = None, root: Path = ROO
                 end_to_end=e2e, per_layer=per_layer)
 
 
+def cell_from_files(config: Path, traffic: Path) -> Cell:
+    """A one-chip cell that BENCHMARK.json does not list (yet): the
+    configuration file and the traffic mix given by path, named
+    <config>.<traffic> by their stems, with no metrics of its own. For
+    readings taken before a cell is added (control.py)."""
+    config, traffic = Path(config), Path(traffic)
+    return Cell(name=f"{config.stem}.{traffic.stem}", chips=1, config_name=config.stem,
+                config=load_json(config), traffic_name=traffic.stem,
+                traffic=load_json(traffic), end_to_end=[], per_layer=[])
+
+
 def load_reader(metric: str) -> Callable[[Dict[str, Any]], Optional[float]]:
     """metrics/<metric>.py's `read(data) -> float or None`."""
     path = HERE / "metrics" / f"{metric}.py"

@@ -6,6 +6,10 @@ with one scale per tensor (amax / 448) and rounds its output the same way,
 and every leaf module's output (the activations that pass between layers,
 which autocast keeps in its low precision) is rounded too; the criterion
 stays f32, as in the program. Gradients pass the rounding straight through.
+With the mask head, its convs and its queries-by-features matmul are rounded
+by the mode and its GroupNorms' outputs by the leaf hooks; under the bf16
+witness (`ref-bf16`) autocast runs the convs and the matmul in bf16 and the
+GroupNorms in f32, as it does in the program.
 (Rounding every op's output, divisions and logs included, turns the loss
 into NaN: fp8 has no room for the reciprocals and logits of a D-FINE.)"""
 

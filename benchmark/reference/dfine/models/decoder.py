@@ -4,11 +4,12 @@ Counterpart of custom_d_fine_tpu/models/decoder.py; parity target reference
 src/d_fine/arch/dfine_decoder.py: MSDeformableAttention (:49-178),
 TransformerDecoderLayer (:181-255), Gate (:258-271), Integral (:274-295),
 LQE (:298-313), TransformerDecoder FDR loop (:373-524), DFINETransformer
-(:527-1057), with the default cross-attention and query selection and no
-mask head (the configurations the benchmark runs). In train
+(:527-1057), with the default cross-attention and query selection, and
+with enable_mask_head the instance-segmentation head of models/mask.py
+(MaskDecoder :316-370, the mask head :925-1005). In train
 mode it adds the CDN denoising queries and returns the aux, pre, enc and dn
 output sets the criterion reads, with .detach() exactly where the JAX
-package has stop_gradient.
+package has stop_gradient. Without the mask head it runs no operation of it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..ops.fdr import distance2bbox, weighting_function
 from ..ops.msda import msda
 from .denoising import build_cdn_group, build_dn_attn_mask, dn_layout
 from .layers import LN_EPS, MLP, BatchNorm, MultiHeadAttention, get_activation
+from .mask import MaskDecoder, mask_logits
 
 class MSDeformableAttention(nn.Module):
     """Multi-scale deformable attention (reference dfine_decoder.py:49-178),
@@ -170,10 +172,9 @@ class DFINETransformer(nn.Module):
                  query_select_method: str = "default", enable_mask_head: bool = False,
                  mask_dim: int = 256):
         super().__init__()
-        if (cross_attn_method, query_select_method, enable_mask_head) != (
-                "default", "default", False):
+        if (cross_attn_method, query_select_method) != ("default", "default"):
             raise ValueError("the reference covers the default cross-attention and query "
-                             "selection, without the mask head")
+                             "selection")
         C = hidden_dim
         self.num_classes, self.hidden_dim, self.num_queries = num_classes, C, num_queries
         self.num_levels, self.nhead, self.num_layers = num_levels, nhead, num_layers
@@ -211,6 +212,10 @@ class DFINETransformer(nn.Module):
             MLP(C, C, 4 * (reg_max + 1), 3) for _ in range(num_layers))
         self.register_buffer("project", weighting_function(reg_max, 0.5, reg_scale),
                              persistent=False)
+        self.enable_mask_head, self.mask_dim = enable_mask_head, mask_dim
+        if enable_mask_head:
+            self.mask_decoder = MaskDecoder(feat_channels, mask_dim)
+            self.mask_head = MLP(C, C, mask_dim, 3)
         self._const_cache: Dict = {}
 
     def _const(self, key, make, device):
@@ -225,7 +230,9 @@ class DFINETransformer(nn.Module):
                 targets: Optional[Dict[str, torch.Tensor]] = None,
                 dn_draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, object]:
         """NCHW PAN outputs -> {"pred_logits" [B,Q,C], "pred_boxes" [B,Q,4]
-        cxcywh} and, in train mode, the criterion's output sets.
+        cxcywh, with the mask head "pred_masks" [B,Q,Hm,Wm] (probabilities in
+        eval mode, logits in train mode; Hm x Wm twice the finest level)} and,
+        in train mode, the criterion's output sets.
         msda_value_dtype: dtype of the MSDA value map (None keeps the
         memory's dtype). targets {labels [B,G], boxes [B,G,4], valid [B,G]} and dn_draws
         (models/denoising.draw_dn_noise) switch on the denoising queries in
@@ -289,10 +296,13 @@ class DFINETransformer(nn.Module):
         pred_corners_prev = 0.0
         ref_points_initial = pre_logits = pre_bboxes = None
         logits_l, bboxes_l, corners_l, refs_l = [], [], [], []
+        queries_l = []  # each kept layer's queries, for the mask head
         for i in range(self.num_layers if train else self.eval_idx + 1):
             query_pos = self.query_pos_head(ref_points).clamp(-10.0, 10.0)
             output = self.decoder.layers[i](output, ref_points, value, spatial_shapes,
                                             attn_mask=attn_mask, query_pos_embed=query_pos)
+            if self.enable_mask_head and (train or i == self.eval_idx):
+                queries_l.append(output)
             if i == 0:
                 pre_delta = self.pre_bbox_head(output)
                 pre_bboxes = torch.sigmoid(pre_delta + inverse_sigmoid(ref_points))
@@ -318,7 +328,10 @@ class DFINETransformer(nn.Module):
             return x[:, :num_dn], x[:, num_dn:]
 
         if not train:
-            return {"pred_logits": logits_l[-1], "pred_boxes": bboxes_l[-1]}
+            out = {"pred_logits": logits_l[-1], "pred_boxes": bboxes_l[-1]}
+            if self.enable_mask_head:
+                out["pred_masks"] = torch.sigmoid(self._layer_masks(feats, queries_l)[-1])
+            return out
 
         (dn_logits, logits), (dn_bboxes, bboxes), (dn_corners, corners), (dn_refs, refs) = (
             tuple(zip(*[split(t) for t in ts])) for ts in (logits_l, bboxes_l, corners_l, refs_l))
@@ -343,4 +356,27 @@ class DFINETransformer(nn.Module):
             out["dn_meta"] = {"num_dn": num_dn, "num_group": num_group,
                               "positive": dn["positive"], "valid": dn["valid"],
                               "gt_index": dn["gt_index"]}
+        if self.enable_mask_head:
+            self._attach_masks(out, self._layer_masks(feats, queries_l), num_dn)
         return out
+
+    def _layer_masks(self, feats, queries) -> List[torch.Tensor]:
+        """The mask logits [B, Q_all, Hm, Wm] of each kept layer's queries
+        (published :925-1005): one set of mask features for all of them."""
+        mask_feat = self.mask_decoder(feats)
+        return [mask_logits(self.mask_head, self.mask_dim, h, mask_feat) for h in queries]
+
+    @staticmethod
+    def _attach_masks(out: Dict[str, object], masks: List[torch.Tensor], num_dn: int) -> None:
+        """Give the train sets their layers' masks (published :988-1005): the
+        final and aux sets the matching queries' (the slots after num_dn);
+        with denoising, each dn set but the last its layer's dn slots, and the
+        last layer's dn slots go to "dn_pred_masks", as the JAX package lays
+        them out."""
+        out["pred_masks"] = masks[-1][:, num_dn:]
+        for o, m in zip(out["aux_outputs"], masks):
+            o["pred_masks"] = m[:, num_dn:]
+        if "dn_outputs" in out:
+            for o, m in zip(out["dn_outputs"][:-1], masks):
+                o["pred_masks"] = m[:, :num_dn]
+            out["dn_pred_masks"] = masks[-1][:, :num_dn]

@@ -12,11 +12,15 @@ targets are computed once per index set and reused across layers (the
 reference points are the layer-0 pre boxes for every layer); num_pos_neg of
 the final layer's DDF carries to the aux and dn layers, as in JAX. One
 process: every normaliser (num_boxes, the GO and denoising counts, the DDF
-counts) is the count of this batch. The mask losses are not covered.
+counts) is the count of this batch. With "masks" in the losses, the sets
+that carry pred_masks add the box-cropped mask losses (loss_masks), written
+from the published code: one image at a time, each matched pair's crop cut
+out by slicing.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -182,6 +186,56 @@ def loss_local(outputs, targets, match: Match, num_boxes, reg_max: int, fgl_targ
     return losses, fgl_targets, num_pos_neg
 
 
+def _crop(box: torch.Tensor, H: int, W: int):
+    """One normalised cxcywh box (f32, on the host) -> the slices of the mask
+    pixels it crops and its area in mask pixels (published _cropped_bce_loss
+    :335-386): the corners scaled to the mask and clamped, x1 to [0, W - 1],
+    x2 to [1, W] (y alike), in f32; the crop holds the pixels whose index i
+    has x1 <= i < x2, the area is (x2 - x1) (y2 - y1), at least 1."""
+    cx, cy, w, h = box.unbind()
+    x1, x2 = ((cx - w / 2) * W).clamp(0, W - 1), ((cx + w / 2) * W).clamp(1, W)
+    y1, y2 = ((cy - h / 2) * H).clamp(0, H - 1), ((cy + h / 2) * H).clamp(1, H)
+    area = max(float((x2 - x1) * (y2 - y1)), 1.0)
+    return (slice(math.ceil(float(y1)), math.ceil(float(y2))),
+            slice(math.ceil(float(x1)), math.ceil(float(x2))), area)
+
+
+def loss_masks(outputs, targets, match: Match) -> Dict[str, torch.Tensor]:
+    """Box-cropped BCE + Dice of the matched masks (published loss_masks
+    :504-556, _cropped_bce_loss :335-386, _cropped_dice_loss :404-450), one
+    image at a time: each matched pair's crop cut out by slicing (_crop), the
+    GT masks brought to the prediction's size (the identity where the
+    generator makes them at that size); per pair the BCE summed over the crop
+    over the box's area, and the Dice of the crop's probabilities against the
+    GT. Departure, the JAX package's: both sums are divided by the count of
+    the set's valid matches, where the published loss takes num_boxes."""
+    pm = outputs["pred_masks"]
+    H, W = pm.shape[-2:]
+    q, g, valid = (match[k].cpu() for k in ("q", "g", "valid"))
+    boxes = targets["boxes"].float().cpu()
+    bce, dice = [], []
+    for b in range(pm.shape[0]):
+        pairs = valid[b].nonzero().flatten()
+        if len(pairs) == 0:
+            continue
+        qs, gs = q[b, pairs], g[b, pairs]
+        crop, area = torch.zeros((len(pairs), H, W)), torch.empty(len(pairs))
+        for k, gi in enumerate(gs.tolist()):
+            ys, xs, area[k] = _crop(boxes[b, gi], H, W)
+            crop[k, ys, xs] = 1.0
+        crop, area = crop.to(pm.device), area.to(pm.device)
+        x = pm[b, qs.to(pm.device)].float()
+        t = F.interpolate(targets["masks"][b, gs.to(pm.device)][None].float(), size=(H, W),
+                          mode="nearest")[0]
+        bce.append((F.binary_cross_entropy_with_logits(x, t, reduction="none") * crop)
+                   .sum((1, 2)) / area)
+        p, t = torch.sigmoid(x) * crop, t * crop
+        dice.append(1.0 - (2.0 * (p * t).sum((1, 2)) + 1e-6)
+                    / (p.sum((1, 2)) + t.sum((1, 2)) + 1e-6))
+    n = sum(len(v) for v in bce)  # every image of a pool has a GT, so n > 0
+    return {"loss_mask_bce": torch.cat(bce).sum() / n, "loss_mask_dice": torch.cat(dice).sum() / n}
+
+
 class DFINECriterion:
     """Callable on the train-mode model outputs and the padded targets
     {labels [B,G], boxes [B,G,4] cxcywh, valid [B,G], optional image_valid [B]};
@@ -291,4 +345,17 @@ class DFINECriterion:
             if "dn_pre_outputs" in outputs:
                 self._terms(outputs["dn_pre_outputs"], targets, match_dn, match_dn, n_dn, n_dn,
                             "_dn_pre", add)
+
+        # ---- the mask losses of every set that carries masks (published
+        # :504-556 on "", "_aux_i", "_dn_i"; the last dn layer's as "_dn_final")
+        if "masks" in self.cfg.losses and targets.get("masks") is not None:
+            mask_sets = [("", outputs, matches[0])] + [
+                (f"_aux_{i}", aux, matches[1 + i]) for i, aux in enumerate(aux_sets)]
+            if has_dn:
+                mask_sets += [(f"_dn_{i}", o, match_dn)
+                              for i, o in enumerate(outputs["dn_outputs"]) if "pred_masks" in o]
+                mask_sets.append(("_dn_final", {"pred_masks": outputs["dn_pred_masks"]}, match_dn))
+            for suffix, o, m in mask_sets:
+                if "pred_masks" in o:
+                    add(loss_masks(o, targets, m), suffix)
         return {k: torch.nan_to_num(v, nan=0.0) for k, v in losses.items()}

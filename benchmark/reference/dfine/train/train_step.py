@@ -29,10 +29,12 @@ class RefState:
 def train_step(state: RefState, criterion: DFINECriterion, batch: Dict[str, torch.Tensor],
                generator: torch.Generator, ema_momentum: float = 0.9998) -> Dict[str, torch.Tensor]:
     """batch as the port's step takes it (uint8 images [B, H, W, 3], labels,
-    boxes cxcywh, valid); returns {total_loss, grad_norm, every loss term}."""
+    boxes cxcywh, valid, and for the mask head masks [B, G, Hm, Wm] {0,1});
+    returns {total_loss, grad_norm, every loss term}."""
     model = state.model.train()
     x = (batch["images"].float() / 255.0).permute(0, 3, 1, 2).contiguous()
-    targets = {k: batch[k] for k in ("labels", "boxes", "valid", "image_valid") if k in batch}
+    targets = {k: batch[k] for k in ("labels", "boxes", "valid", "image_valid", "masks")
+               if k in batch}
     dec = model.decoder
     draws = None
     if dec.num_denoising > 0:

@@ -30,11 +30,25 @@ class Phases:
 
 
 def model_config(config: Dict[str, Any]) -> ModelConfig:
-    """The reference registry's entry named by the configuration file (the
-    reference covers the task detect)."""
-    if config["task"] != "detect":
-        raise ValueError(f"task {config['task']!r}: the reference covers detect")
-    return get_model_config(config["model_name"])
+    """The reference registry's entry named by the configuration file: for
+    task "detect" the entry itself; for "segment" the entry with the mask
+    head on and "masks" among the criterion's losses, as the port's
+    get_model_config(..., enable_mask_head=True) and with_mask_losses give it
+    (the registry's losses have no "masks")."""
+    cfg = get_model_config(config["model_name"])
+    if config["task"] == "detect":
+        return cfg
+    if config["task"] == "segment":
+        losses = tuple(cfg.criterion.losses) + ("masks",)
+        return cfg.replace(decoder=dataclasses.replace(cfg.decoder, enable_mask_head=True),
+                           criterion=dataclasses.replace(cfg.criterion, losses=losses))
+    raise ValueError(f"task {config['task']!r}: the reference covers detect and segment")
+
+
+def mask_size(config: Dict[str, Any], img: int) -> int:
+    """The side of the mask head's output for `img`-pixel images: twice the
+    finest feature level (img / 4 for strides 8-32, img / 8 for 16-32)."""
+    return 2 * img // model_config(config).decoder.feat_strides[0]
 
 
 def config_dict(cfg: ModelConfig) -> Dict[str, Any]:

@@ -30,7 +30,8 @@ from ..reference.dfine.train.criterion import DFINECriterion
 from ..reference.dfine.train.optim import Optimizer
 from ..reference.dfine.train.train_step import RefState, train_step
 from ..weights import make_weights
-from .common import Phases, leaf_gaps, model_config, quantile, reference_model, strict_fp32
+from .common import (Phases, leaf_gaps, mask_size, model_config, quantile, reference_model,
+                     strict_fp32)
 
 LEAF_FLOOR = 1e-3  # leaves whose reference gradient is under this share of the median leaf's
 
@@ -51,10 +52,18 @@ def first_grads(optimizer: torch.optim.Optimizer, params: Dict[str, torch.Tensor
     return dict(zip(names, torch.stack(norms).tolist())) if norms else {}
 
 
-def dn_loss(metrics: Dict[str, torch.Tensor]) -> float:
-    """The sum of a step's denoising loss terms (names with `_dn_`)."""
-    terms = [v for k, v in metrics.items() if "_dn_" in k]
+def loss_sum(metrics: Dict[str, torch.Tensor], dn: bool, mask: bool) -> float:
+    """The sum of a step's loss terms of the denoising sets (names with
+    `_dn_`) or of the matched sets (without), that are mask terms (names
+    that start `loss_mask_`) or not; NaN where there is none."""
+    terms = [v for k, v in metrics.items() if k.startswith("loss_")
+             and ("_dn_" in k) == dn and k.startswith("loss_mask_") == mask]
     return float(torch.stack([t.float() for t in terms]).sum()) if terms else math.nan
+
+
+def rel_gap(a: float, b: float) -> float:
+    """|a - b| / |b|; inf where the program's a is not finite."""
+    return abs(a - b) / max(abs(b), 1e-30) if math.isfinite(a) else math.inf
 
 
 class FirstForward:
@@ -63,25 +72,35 @@ class FirstForward:
     each point (forward hooks, from outside the model): the stem, the first
     two backbone stages, and of the decoder the encoder's scores at the
     selected queries, the first layer's and the final layer's logits and the
-    final boxes. (Deeper points were read once; PERF.md.)"""
+    final boxes, and with the mask head the mask features (`mask_feat`, the
+    MaskDecoder's output, before the queries' matmul) and the final layer's
+    mask logits; first.inputs["mask_feat"] holds the PAN levels that the
+    MaskDecoder took. (Deeper points were read once; PERF.md.)"""
 
     def __init__(self, model: torch.nn.Module):
         self.value: Dict[str, torch.Tensor] = {}
+        self.inputs: Dict[str, List[torch.Tensor]] = {}
         stages = model.backbone.stages
         self.points = {"stem": model.backbone.stem, "stage0": stages[0], "stage1": stages[1],
                        "model": model}
+        if getattr(model.decoder, "mask_decoder", None) is not None:
+            self.points["mask_feat"] = model.decoder.mask_decoder
 
     def _keep(self, name, t):
         if name not in self.value:
             self.value[name] = t.detach().float().cpu()
 
     def _hook(self, name):
-        def hook(_mod, _inp, out):
+        def hook(_mod, inp, out):
+            if name == "mask_feat" and name not in self.inputs:
+                self.inputs[name] = [f.detach().float().cpu() for f in inp[0]]
             if name == "model":
                 self._keep("enc_logit", out["enc_aux_outputs"][0]["pred_logits"])
                 self._keep("pre_logit", out["pre_outputs"]["pred_logits"])
                 self._keep("logit", out["pred_logits"])
                 self._keep("box", out["pred_boxes"])
+                if out.get("pred_masks") is not None:
+                    self._keep("mask", out["pred_masks"])
             else:
                 self._keep(name, out)
         return hook
@@ -119,18 +138,19 @@ class Train:
         self.step_wrapper = step_wrapper  # tests: a fault planted under the timed path
         self.data: Dict[str, Any] = {}
         self.count_flops_in_check = False
+        self.mask_size = mask_size(self.config, self.mix["img"]) if self.mix.get("masks") else 0
 
     def _opt_kw(self) -> Dict[str, Any]:
         return {k: self.mix[k] for k in ("base_lr", "backbone_lr", "total_steps")}
 
     def build(self):
-        """The program: the port's build_training with the run's weights."""
-        from custom_d_fine_tpu_torch.configs import get_model_config
+        """The program: the port's build_training of the configuration's
+        model (common.model_config) with the run's weights."""
         from custom_d_fine_tpu_torch.train.train_step import build_training
 
         nc = self.config["num_classes"]
-        weights = make_weights(model_config(self.config), nc, self.seed, self.device)
-        cfg = get_model_config(self.config["model_name"])
+        cfg = model_config(self.config)
+        weights = make_weights(cfg, nc, self.seed, self.device)
         return build_training(cfg, nc, device=self.device, bf16=self.mix["bf16"],
                               state_dict=weights, **self._opt_kw())
 
@@ -142,7 +162,8 @@ class Train:
 
     def setup(self, tmpdir: Optional[str] = None) -> None:
         phase = Phases("train")
-        self.pool = train_pool(self.mix, self.seed, self.config["num_classes"], self.device)
+        self.pool = train_pool(self.mix, self.seed, self.config["num_classes"], self.device,
+                               self.mask_size)
         phase("pool")
         step, self.state = self.build()
         phase("build")
@@ -160,9 +181,10 @@ class Train:
                 losses.append(float(m["total_loss"]))
                 if s == 0:
                     self.data["grad1"] = first_grads(self.state.optimizer.adamw, params)
-                    self.data["dn_loss1"] = dn_loss(m)
+                    self.data["loss1"] = {(dn, mask): loss_sum(m, dn, mask)
+                                          for dn in (False, True) for mask in (False, True)}
         self.data["losses"] = losses
-        self.data["outputs1"] = first.value
+        self.data["outputs1"], self.data["inputs1"] = first.value, first.inputs
         self.data["change"] = change_norms(params, p0)
         self.data["ema_change"] = change_norms(self.state.ema, e0)
         del p0, e0
@@ -243,10 +265,19 @@ class Train:
           1's forward produced at each point of FirstForward (stem, stage0,
           stage1, enc_logit, pre_logit, logit, box; the decoder's queries are
           the same on both sides by the replay);
-        - dn_loss_gap.1: as loss_gap.1, of the first step's denoising terms, whose
-          queries are matched to their targets by construction: the
-          Hungarian matcher's choices, which flip on rounding when two
-          costs are near, do not reach them;
+        - dn_loss_gap.1: as loss_gap.1, of the first step's denoising terms but
+          the mask terms, whose queries are matched to their targets by
+          construction: the Hungarian matcher's choices, which flip on
+          rounding when two costs are near, do not reach them;
+        - with the mask head, mask_loss_gap.1: as loss_gap.1, of the first
+          step's mask terms (loss_mask_*) of the matched sets (final and
+          aux), and dn_mask_loss_gap.1, of its mask terms of the denoising
+          sets; mask_feat_gap.1 and mask_gap.1 are FirstForward's points
+          `mask_feat` and `mask`; mask_feat_local_gap.1, as <point>_gap.1, of
+          the program's mask features against the reference's MaskDecoder
+          (at the starting weights) run on the very PAN levels the program's
+          took: the head's own rounding, which the gaps upstream of it do not
+          drown;
         - grad_gap, change_gap, ema_gap: each leaf's gap of norms (the first
           gradient as AdamW received it; each parameter's change over the
           steps; its EMA's change) over the larger of the reference leaf's
@@ -255,6 +286,7 @@ class Train:
         Leaves whose reference gradient is under LEAF_FLOOR of the median
         leaf's are left out: they move by round-off alone. A parameter the
         program's optimizer never stepped reads a norm of 0."""
+        d = self.data
         nc = self.config["num_classes"]
         cfg = model_config(self.config)
         model = reference_model(self.config, self.seed, self.device).train()
@@ -262,11 +294,17 @@ class Train:
         optimizer = Optimizer(model, cfg, **self._opt_kw())
         state = RefState(model, optimizer, {k: v.detach().clone()
                                             for k, v in model.state_dict().items()})
-        pool = train_pool(self.mix, self.seed, nc, self.device)
+        pool = train_pool(self.mix, self.seed, nc, self.device, self.mask_size)
         gen = torch.Generator().manual_seed(self.seed)
         params = dict(model.named_parameters())
         p0 = {k: v.detach().clone() for k, v in params.items()}
         e0 = {k: state.ema[k].clone() for k in params}
+        local = None
+        if "mask_feat" in d["inputs1"]:
+            with torch.no_grad():
+                feats = [f.to(self.device) for f in d["inputs1"]["mask_feat"]]
+                local = model.decoder.mask_decoder(feats).float().cpu()
+            del feats
         losses, grad1 = [], {}
         replay = Replayer(self.recorder, ref_matcher)
         with replay.replaying(), FirstForward(model) as first:
@@ -278,21 +316,24 @@ class Train:
                 losses.append(float(out["total_loss"]))
                 if s == 0:
                     grad1 = first_grads(optimizer.adamw, params)
-                    dn1 = dn_loss(out)
+                    ref1 = {key: loss_sum(out, *key) for key in d["loss1"]}
         change = change_norms(params, p0)
         ema_change = change_norms(state.ema, e0)
         med = quantile(grad1.values(), 0.5)
         leaves = [k for k, v in grad1.items() if v >= LEAF_FLOOR * med]
-        self.data["leaves_left_out"] = sorted(set(grad1) - set(leaves))
-        d = self.data
+        d["leaves_left_out"] = sorted(set(grad1) - set(leaves))
         out: Dict[str, float] = dict(replay.readings())
         out["selection_excess"] = self.recorder.selection_excess()
         for i, (a, b) in enumerate(zip(d["losses"], losses), 1):
-            out[f"loss_gap.{i}"] = abs(a - b) / max(abs(b), 1e-30) if math.isfinite(a) else math.inf
+            out[f"loss_gap.{i}"] = rel_gap(a, b)
         for k, ref in first.value.items():
             out[f"{k}_gap.1"] = output_gap(d["outputs1"].get(k), ref)
-        a = d["dn_loss1"]
-        out["dn_loss_gap.1"] = abs(a - dn1) / max(abs(dn1), 1e-30) if math.isfinite(a) else math.inf
+        out["dn_loss_gap.1"] = rel_gap(d["loss1"][True, False], ref1[True, False])
+        if self.mask_size:
+            out["mask_loss_gap.1"] = rel_gap(d["loss1"][False, True], ref1[False, True])
+            out["dn_mask_loss_gap.1"] = rel_gap(d["loss1"][True, True], ref1[True, True])
+        if local is not None:
+            out["mask_feat_local_gap.1"] = output_gap(d["outputs1"].get("mask_feat"), local)
         for name, prog, ref in (("grad_gap", d["grad1"], grad1), ("change_gap", d["change"], change),
                                 ("ema_gap", d["ema_change"], ema_change)):
             gaps = leaf_gaps(prog, ref, leaves)

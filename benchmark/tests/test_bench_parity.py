@@ -1,11 +1,27 @@
 """The reference (benchmark/reference) against the port on the CPU at one
 small size (D-FINE-n, 320x320), from the same weights: the forward, and one
-training step's losses and update. The test imports both; the
-reference imports nothing of the port."""
+training step's losses and update, for task detect and, with the mask head,
+for task segment. The test imports both; the reference imports nothing of
+the port.
+
+Tolerances: the forward's outputs (the eval forward's, and every mask set
+of the train forward) to rtol 1e-4, atol 1e-5, and the loss terms to rtol
+1e-4. Both sides compute in f32 on the CPU from the same weights and inputs.
+The detect forwards run the same operations in the same order here and agree
+to the bit. The reference's mask head, mask costs and mask losses are
+written in a form of their own (GroupNorm written out, an einsum for the
+mask logits, the losses one matched pair at a time on slices of the box's
+crop), so the segment outputs and the mask terms agree to rounding only;
+the training step differs in the order of its sums too (the port's
+channels_last convolutions and its written-out MSDA backward), and one
+step's loss terms agree to ~5e-5 relative. The tolerances keep room for that
+rounding and no more: a dropped term, a wrong normaliser or crop, a missing
+mask set or a mask head that reads the wrong queries moves them far past
+it."""
 
 import torch
 
-from benchmark.runners.common import model_config
+from benchmark.runners.common import mask_size, model_config
 from benchmark.generate import train_pool
 from benchmark.harness import HERE, load_json
 from benchmark.reference.dfine.models.dfine import DFINE
@@ -15,44 +31,104 @@ from benchmark.reference.dfine.train.train_step import RefState, train_step
 from benchmark.weights import make_weights
 
 CONFIG = {"model_name": "n", "task": "detect", "num_classes": 80, "img_size": [320, 320]}
+SEGMENT = dict(CONFIG, task="segment")
 
 
-def _weights(seed=3):
-    return make_weights(model_config(CONFIG), 80, seed, torch.device("cpu"))
+def _weights(seed=3, config=CONFIG):
+    return make_weights(model_config(config), 80, seed, torch.device("cpu"))
 
 
-def _ref_model(w):
-    m = DFINE(model_config(CONFIG), num_classes=80)
+def _ref_model(w, config=CONFIG):
+    m = DFINE(model_config(config), num_classes=80)
     m.load_state_dict(w)
     return m
 
 
-def test_forward_matches_the_port():
+def _port_model(w, config=CONFIG):
     from custom_d_fine_tpu_torch.configs import get_model_config
     from custom_d_fine_tpu_torch.models.dfine import DFINE as PortDFINE
 
-    w = _weights()
-    port = PortDFINE(get_model_config("n"), num_classes=80)
+    port = PortDFINE(get_model_config("n", enable_mask_head=config["task"] == "segment"),
+                     num_classes=80)
     port.load_state_dict(w)
+    return port
+
+
+def _batch(config=CONFIG, seed=5):
+    mix = dict(load_json(HERE / "traffic" / "train.json"), batch=2, img=320, pool=1,
+               masks=config["task"] == "segment")
+    return mix, train_pool(mix, seed, 80, "cpu", mask_size(config, 320))[0]
+
+
+def test_forward_matches_the_port():
+    _forward_matches(CONFIG, ("pred_logits", "pred_boxes"))
+
+
+def test_segment_eval_forward_matches_the_port():
+    _forward_matches(SEGMENT, ("pred_logits", "pred_boxes", "pred_masks"))
+
+
+def _forward_matches(config, keys):
+    w = _weights(config=config)
     x = torch.rand((2, 3, 320, 320), generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        got, want = port.eval()(x), _ref_model(w).eval()(x)
-    for k in ("pred_logits", "pred_boxes"):
+        got, want = _port_model(w, config).eval()(x), _ref_model(w, config).eval()(x)
+    assert sorted(got) == sorted(want) == sorted(keys)
+    for k in keys:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5, msg=k)
+
+
+def _mask_sets(out):
+    """name -> mask logits of every set of a train-mode output."""
+    sets = {"final": out["pred_masks"], "dn_final": out["dn_pred_masks"]}
+    sets.update({f"aux_{i}": o["pred_masks"] for i, o in enumerate(out["aux_outputs"])})
+    sets.update({f"dn_{i}": o["pred_masks"] for i, o in enumerate(out["dn_outputs"])
+                 if "pred_masks" in o})
+    return sets
+
+
+def test_segment_train_forward_mask_sets_match_the_port():
+    from benchmark.reference.dfine.models.denoising import dn_layout, draw_dn_noise
+
+    w = _weights(config=SEGMENT)
+    _, batch = _batch(SEGMENT)
+    x = (batch["images"].float() / 255.0).permute(0, 3, 1, 2).contiguous()
+    targets = {k: batch[k] for k in ("labels", "boxes", "valid", "masks")}
+    outs = []
+    for model in (_port_model(w, SEGMENT), _ref_model(w, SEGMENT)):
+        dec = model.train().decoder
+        _, num_dn, _ = dn_layout(dec.num_denoising, dec.dn_max_gt, dec.num_queries)
+        draws = draw_dn_noise(torch.Generator().manual_seed(9), 2, num_dn, dec.num_classes)
+        with torch.no_grad():
+            outs.append(_mask_sets(model(x, targets=targets, dn_draws=draws)))
+    got, want = outs
+    # final, 2 aux, 2 dn sets with masks and dn_final: one per decoder layer each way
+    assert sorted(got) == sorted(want) and len(want) == 6
+    for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5, msg=k)
 
 
 def test_one_training_step_matches_the_port():
+    _one_step_matches(CONFIG)
+
+
+def test_segment_training_step_matches_the_port():
+    terms = _one_step_matches(SEGMENT)
+    # the mask terms of the final, aux (2), dn (2) and dn_final sets
+    assert len([k for k in terms if k.startswith("loss_mask_")]) == 2 * 6
+
+
+def _one_step_matches(config):
     from custom_d_fine_tpu_torch.train.train_step import build_training
 
-    mix = dict(load_json(HERE / "traffic" / "train.json"), batch=2, img=320, pool=1)
-    batch = train_pool(mix, 5, 80, "cpu")[0]
-    w = _weights()
+    mix, batch = _batch(config)
+    cfg = model_config(config)
+    w = _weights(config=config)
     opt = {k: mix[k] for k in ("base_lr", "backbone_lr", "total_steps")}
-    step, state = build_training("n", 80, device="cpu", bf16=False, state_dict=w, **opt)
+    step, state = build_training(cfg, 80, device="cpu", bf16=False, state_dict=w, **opt)
     _, got = step(state, batch, torch.Generator().manual_seed(9))
 
-    cfg = model_config(CONFIG)
-    model = _ref_model(w).train()
+    model = _ref_model(w, config).train()
     ref = RefState(model, Optimizer(model, cfg, **opt),
                    {k: v.clone() for k, v in model.state_dict().items()})
     want = train_step(ref, DFINECriterion(cfg.criterion, cfg.matcher, 80), batch,
@@ -71,3 +147,51 @@ def test_one_training_step_matches_the_port():
     for (k, p), q in zip(state.model.named_parameters(), model.parameters()):
         lr = 2 * opt["base_lr"]
         assert (p.detach() - q.detach()).abs().max() <= lr, k
+    return want
+
+
+def _edge_case_masks():
+    """Mask logits [2, 6, 16, 16], GT masks [2, 4, 16, 16] and boxes whose
+    crops reach the corner cases: past the right and bottom edges, past the
+    left and top, corners on whole mask pixels, a box under one pixel, and
+    one padding row; each GT matched to one query."""
+    g = torch.Generator().manual_seed(4)
+    logits = 3 * torch.randn((2, 6, 16, 16), generator=g)
+    masks = (torch.rand((2, 4, 16, 16), generator=g) < 0.5).to(torch.uint8)
+    boxes = torch.tensor([[[0.9, 0.85, 0.4, 0.5], [0.05, 0.1, 0.3, 0.4],
+                           [0.5, 0.5, 0.5, 0.25], [0.3, 0.6, 0.02, 0.03]],
+                          [[0.5, 0.5, 1.0, 1.0], [0.75, 0.25, 0.5, 0.5],
+                           [0.4, 0.7, 0.33, 0.21], [0.0, 0.0, 0.0, 0.0]]])
+    valid = torch.tensor([[True, True, True, True], [True, True, True, False]])
+    match = {"q": torch.tensor([[5, 0, 2, 3], [1, 4, 0, 2]]),
+             "g": torch.arange(4)[None].expand(2, 4), "valid": valid}
+    return logits, {"boxes": boxes, "masks": masks, "valid": valid}, match
+
+
+def test_mask_losses_match_the_port_on_edge_boxes():
+    """The reference's per-pair crops and normalisers against the port's
+    dense ones, on boxes at the corner cases the timed sizes hit rarely; to
+    rtol 1e-5, f32 sums in another order."""
+    from custom_d_fine_tpu_torch.train.criterion import loss_masks as port_loss_masks
+    from benchmark.reference.dfine.train.criterion import loss_masks
+
+    logits, targets, match = _edge_case_masks()
+    got = port_loss_masks({"pred_masks": logits}, targets, match, match["valid"].sum().float())
+    want = loss_masks({"pred_masks": logits}, targets, match)
+    assert sorted(got) == sorted(want) == ["loss_mask_bce", "loss_mask_dice"]
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0, msg=k)
+
+
+def test_mask_costs_match_the_port():
+    """The reference's Dice and focal mask costs (softplus for the logs)
+    against the port's, to rtol 1e-5: the JAX package's 1e-8 inside the
+    logs moves them by far less at these logits."""
+    from custom_d_fine_tpu_torch.train.matcher import mask_matching_cost as port_cost
+    from benchmark.reference.dfine.configs.registry import MatcherConfig
+    from benchmark.reference.dfine.train.matcher import mask_matching_cost
+
+    logits, targets, _ = _edge_case_masks()
+    want = mask_matching_cost(logits, targets["masks"], MatcherConfig())
+    torch.testing.assert_close(port_cost(logits, targets["masks"], MatcherConfig()), want,
+                               rtol=1e-5, atol=0)

@@ -5,7 +5,7 @@ import re
 
 import pytest
 
-from benchmark.runners.common import config_dict
+from benchmark.runners.common import config_dict, model_config
 from benchmark.harness import HERE, ROOT, find_cell, load_json, load_reader
 from benchmark.reference.dfine.configs import get_model_config as ref_config
 
@@ -60,13 +60,70 @@ def test_cell_resolves_to_its_files(cell):
         assert m["moves"] in [e["name"] for e in c.end_to_end]
 
 
+def registry_faults(f) -> list:
+    """Where a configuration file's `model` is not its registry entry, in
+    either registry: for task detect the entry itself; for task segment the
+    entry with the mask head on and "masks" among the criterion's losses
+    (common.model_config; the port's get_model_config(..., enable_mask_head=
+    True) with with_mask_losses). Any other task is a fault."""
+    import dataclasses
+
+    from custom_d_fine_tpu_torch.configs import get_model_config as port_config
+    from custom_d_fine_tpu_torch.train.criterion import with_mask_losses
+
+    if f["task"] not in ("detect", "segment"):
+        return [f"task {f['task']!r}"]
+    seg = f["task"] == "segment"
+    ref = ref_config(f["model_name"])
+    if seg:
+        ref = ref.replace(decoder=dataclasses.replace(ref.decoder, enable_mask_head=True),
+                          criterion=dataclasses.replace(
+                              ref.criterion, losses=tuple(ref.criterion.losses) + ("masks",)))
+    port = port_config(f["model_name"], enable_mask_head=seg)
+    if seg:
+        port = port.replace(criterion=with_mask_losses(port.criterion))
+    return [name for name, want in (("reference registry", ref), ("port registry", port))
+            if f["model"] != config_dict(want)]
+
+
 @pytest.mark.parametrize("conf", [c["name"] for c in SPEC["configs"]])
 def test_config_file_is_the_registry_entry(conf):
-    from custom_d_fine_tpu_torch.configs import get_model_config as port_config
-
     c = {x["name"]: x for x in SPEC["configs"]}[conf]
     f = load_json(ROOT / c["file"])
-    assert f["task"] == "detect"
-    assert f["model"] == config_dict(ref_config(f["model_name"]))
-    assert f["model"] == config_dict(port_config(f["model_name"]))
+    assert registry_faults(f) == []
+    assert f["model"] == config_dict(model_config(f))
     assert f["reduced"] == c["reduced"] == []
+
+
+def _changed(model, path, value):
+    out = json.loads(json.dumps(model))
+    d = out
+    for k in path[:-1]:
+        d = d[k]
+    d[path[-1]] = value
+    return out
+
+
+DETECT_M = load_json(ROOT / "benchmark" / "configs" / "dfine-m.json")
+SEGMENT_M = dict(DETECT_M, task="segment",
+                 model=config_dict(model_config(dict(DETECT_M, task="segment"))))
+
+
+@pytest.mark.parametrize("f,faults", [
+    (DETECT_M, []),
+    (SEGMENT_M, []),
+    (dict(DETECT_M, model=_changed(DETECT_M["model"], ("decoder", "num_layers"), 3)),
+     ["reference registry", "port registry"]),
+    (dict(DETECT_M, model=_changed(DETECT_M["model"], ("decoder", "enable_mask_head"), True)),
+     ["reference registry", "port registry"]),
+    (dict(DETECT_M, task="segment"), ["reference registry", "port registry"]),
+    (dict(SEGMENT_M, model=_changed(SEGMENT_M["model"], ("decoder", "mask_dim"), 128)),
+     ["reference registry", "port registry"]),
+    (dict(SEGMENT_M, model=_changed(SEGMENT_M["model"], ("criterion", "losses"),
+                                    ["vfl", "boxes", "local"])),
+     ["reference registry", "port registry"]),
+    (dict(DETECT_M, task="pose"), ["task 'pose'"]),
+], ids=["detect", "segment", "detect-depth", "detect-with-head", "segment-detect-model",
+        "segment-width", "segment-without-mask-losses", "other-task"])
+def test_the_registry_rule_fails_a_file_that_departs(f, faults):
+    assert registry_faults(f) == faults

@@ -16,7 +16,13 @@ input, so that the check that decides `correct` can see each of them:
   be its anchor and every sampling point and attention weight would ignore
   the query.
 All uniform leaves come from one `torch.rand` and all normal leaves from one
-`torch.randn`, on a generator on the device.
+`torch.randn`, on a generator on the device. With the mask head on, its leaves
+are drawn after those, from one more `torch.rand` and `torch.randn` on the
+same generator, as the port initialises them (U(+-1/sqrt(fan_in)) for the
+convs and the MLP, kaiming normal with fan_out for up_conv, GroupNorm (1, 0));
+its convs keep that scale, since each feeds a GroupNorm that undoes it. So
+a detect model's draws are the same with or without this rule, and a segment
+model's other leaves equal the detect model's of the same seed.
 """
 
 from __future__ import annotations
@@ -43,10 +49,36 @@ def _fan_out(w: torch.Tensor) -> int:
     return w.shape[0] * int(np.prod(w.shape[2:]))
 
 
+def _mask_modules(model: DFINE) -> List[nn.Module]:
+    dec = model.decoder
+    if not dec.enable_mask_head:
+        return []
+    return list(dec.mask_decoder.modules()) + list(dec.mask_head.modules())
+
+
+def _mask_plan(model: DFINE) -> Tuple[List[Tuple[torch.Tensor, float]],
+                                      List[Tuple[torch.Tensor, float]]]:
+    """The mask head's (uniform leaves, normal leaves), as the port's
+    apply_torch_default_init draws them (published dfine_decoder.py:351 for
+    up_conv)."""
+    uniform, normal = [], []
+    up_conv = model.decoder.mask_decoder.up_conv
+    for m in _mask_modules(model):
+        if m is up_conv:
+            normal.append((m.weight, math.sqrt(2.0 / _fan_out(m.weight))))
+        elif isinstance(m, (nn.Linear, nn.Conv2d)):
+            uniform.append((m.weight, 1.0 / math.sqrt(_fan_in(m.weight))))
+            if m.bias is not None:
+                uniform.append((m.bias, 1.0 / math.sqrt(_fan_in(m.weight))))
+    return uniform, normal
+
+
 def _draw_plan(model: DFINE) -> Tuple[List[Tuple[torch.Tensor, float]],
                                       List[Tuple[torch.Tensor, float]]]:
-    """(uniform leaves with their bound, normal leaves with their std)."""
+    """(uniform leaves with their bound, normal leaves with their std), the
+    mask head's left out."""
     dec = model.decoder
+    skip = {id(m) for m in _mask_modules(model)}
     xavier = set()
     for layer in dec.decoder.layers:
         xavier |= {id(layer.linear1), id(layer.linear2)}
@@ -57,6 +89,8 @@ def _draw_plan(model: DFINE) -> Tuple[List[Tuple[torch.Tensor, float]],
             xavier.add(id(proj.conv))
     uniform, normal = [], []
     for m in model.modules():
+        if id(m) in skip:
+            continue
         if isinstance(m, MultiHeadAttention):
             uniform.append((m.in_proj_weight, math.sqrt(6.0 / (4.0 * m.embed_dim))))
         elif isinstance(m, (nn.Linear, nn.Conv2d)):
@@ -91,11 +125,12 @@ def make_weights(cfg: ModelConfig, num_classes: int, seed: int,
     with torch.device(device):
         model = DFINE(cfg, num_classes=num_classes)  # constants from the modules' own init
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    uniform, normal = _draw_plan(model)
-    n_u = sum(t.numel() for t, _ in uniform)
-    n_n = sum(t.numel() for t, _ in normal)
-    _fill(uniform, torch.rand(n_u, generator=gen, device=device).mul_(2.0).sub_(1.0))
-    _fill(normal, torch.randn(n_n, generator=gen, device=device))
+    plans = [_draw_plan(model)] + ([_mask_plan(model)] if cfg.decoder.enable_mask_head else [])
+    for uniform, normal in plans:
+        n_u = sum(t.numel() for t, _ in uniform)
+        n_n = sum(t.numel() for t, _ in normal)
+        _fill(uniform, torch.rand(n_u, generator=gen, device=device).mul_(2.0).sub_(1.0))
+        _fill(normal, torch.randn(n_n, generator=gen, device=device))
     for m in model.modules():  # torch MHA zeroes both projection biases
         if isinstance(m, MultiHeadAttention):
             m.in_proj_bias.zero_()
