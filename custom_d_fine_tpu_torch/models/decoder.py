@@ -7,7 +7,8 @@ LQE (:298-313), TransformerDecoder FDR loop (:373-524), DFINETransformer
 (:527-1057), MaskDecoder (:316-370) and the mask head (:925-1005). In train
 mode it adds the CDN denoising queries and returns the aux, pre, enc and dn
 output sets the criterion reads, with .detach() exactly where the JAX
-package has stop_gradient.
+package has stop_gradient. Under torch.profiler the mask head records the
+span `model.mask_head`, in eval too (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..ops.boxes import inverse_sigmoid
 from ..ops.deform_attn import ms_deform_attn_discrete
 from ..ops.fdr import distance2bbox, weighting_function
 from ..ops.msda import msda
+from ..utils.profiling import span
 from .denoising import build_cdn_group, build_dn_attn_mask, dn_layout
 from .layers import LN_EPS, MLP, BatchNorm, MultiHeadAttention, get_activation
 
@@ -385,15 +387,20 @@ class DFINETransformer(nn.Module):
             return x[:, :num_dn], x[:, num_dn:]
 
         # ---- mask head (reference :925-1005): per kept layer, its queries'
-        # embeddings against the mask features
+        # embeddings against the mask features; span `model.mask_head` counts
+        # the mask pixels B x Hm x Wm, the query rows projected (dn included)
+        # and the layers
         masks_l = dn_masks_l = None
         if self.enable_mask_head:
-            mask_feat = self.mask_decoder(feats)  # [B, mask_dim, Hm, Wm]
-            Hm, Wm = mask_feat.shape[2:]
-            masks_l = [torch.matmul(self.mask_head(h) * self.mask_dim ** -0.5,
-                                    mask_feat.flatten(2)).reshape(B, -1, Hm, Wm)
-                       for h in queries_l]
-            dn_masks_l, masks_l = tuple(zip(*[split(m) for m in masks_l]))
+            with span("model.mask_head", layers=len(queries_l),
+                      rows=sum(h.shape[0] * h.shape[1] for h in queries_l)) as sp:
+                mask_feat = self.mask_decoder(feats)  # [B, mask_dim, Hm, Wm]
+                Hm, Wm = mask_feat.shape[2:]
+                sp.count(pixels=B * Hm * Wm)
+                masks_l = [torch.matmul(self.mask_head(h) * self.mask_dim ** -0.5,
+                                        mask_feat.flatten(2)).reshape(B, -1, Hm, Wm)
+                           for h in queries_l]
+                dn_masks_l, masks_l = tuple(zip(*[split(m) for m in masks_l]))
 
         if not train:
             out = {"pred_logits": logits_l[-1], "pred_boxes": bboxes_l[-1]}

@@ -35,6 +35,7 @@ from ..configs.registry import CriterionConfig, MatcherConfig
 from ..ops.boxes import box_cxcywh_to_xyxy, elementwise_box_iou, elementwise_generalized_box_iou
 from ..ops.fdr import bbox2distance
 from ..parallel.dist import global_sum
+from ..utils.profiling import span
 from .matcher import match_all_sets
 
 Match = Dict[str, torch.Tensor]  # {"q": [B,M], "g": [B,M], "valid": [B,M]}
@@ -229,31 +230,35 @@ def loss_masks(outputs, targets, match: Match, num_masks) -> Dict[str, torch.Ten
     [B, G, Hm, Wm] are at the prediction's resolution. num_masks: the global
     batch's count of valid matches of `match`, which the JAX package sums
     itself. Only the matched queries are cast to f32 (JAX casts all of
-    pred_masks first: the same function, in less memory)."""
+    pred_masks first: the same function, in less memory). Under
+    torch.profiler it records `train.loss.masks` (counts `masks`, the B x M
+    slots cropped, and `pixels`, the crops' B x M x Hm x Wm)."""
     if outputs.get("pred_masks") is None or targets.get("masks") is None:
         return {}
     pm = outputs["pred_masks"]
     Hm, Wm = pm.shape[-2:]
-    rows = torch.arange(pm.shape[0], device=pm.device)[:, None]
-    pred = pm[rows, match["q"].clamp(0, pm.shape[1] - 1)].float()  # [B, M, Hm, Wm]
-    tgt = targets["masks"][rows, match["g"].clamp(0, targets["masks"].shape[1] - 1)].float()
-    v = match["valid"].float()
+    B, M = match["q"].shape
+    with span("train.loss.masks", masks=B * M, pixels=B * M * Hm * Wm):
+        rows = torch.arange(pm.shape[0], device=pm.device)[:, None]
+        pred = pm[rows, match["q"].clamp(0, pm.shape[1] - 1)].float()  # [B, M, Hm, Wm]
+        tgt = targets["masks"][rows, match["g"].clamp(0, targets["masks"].shape[1] - 1)].float()
+        v = match["valid"].float()
 
-    cx, cy, w, h = _gather_q(targets["boxes"], match["g"]).unbind(-1)  # normalised cxcywh
-    x1 = ((cx - w / 2) * Wm).clamp(0, Wm - 1)
-    y1 = ((cy - h / 2) * Hm).clamp(0, Hm - 1)
-    x2 = ((cx + w / 2) * Wm).clamp(1, Wm)
-    y2 = ((cy + h / 2) * Hm).clamp(1, Hm)
-    inside = _inside_box_mask(torch.stack([x1, y1, x2, y2], -1), Hm, Wm)
-    area = ((x2 - x1) * (y2 - y1)).clamp(min=1.0)
+        cx, cy, w, h = _gather_q(targets["boxes"], match["g"]).unbind(-1)  # normalised cxcywh
+        x1 = ((cx - w / 2) * Wm).clamp(0, Wm - 1)
+        y1 = ((cy - h / 2) * Hm).clamp(0, Hm - 1)
+        x2 = ((cx + w / 2) * Wm).clamp(1, Wm)
+        y2 = ((cy + h / 2) * Hm).clamp(1, Hm)
+        inside = _inside_box_mask(torch.stack([x1, y1, x2, y2], -1), Hm, Wm)
+        area = ((x2 - x1) * (y2 - y1)).clamp(min=1.0)
 
-    per_inst_bce = (_bce_logits(pred, tgt) * inside).sum((-2, -1)) / area  # [B, M]
-    prob, tgt = torch.sigmoid(pred) * inside, tgt * inside
-    inter = (prob * tgt).sum((-2, -1))
-    denom = prob.sum((-2, -1)) + tgt.sum((-2, -1)) + 1e-6
-    dice = 1.0 - (2.0 * inter + 1e-6) / denom
-    return {"loss_mask_bce": (per_inst_bce * v).sum() / num_masks,
-            "loss_mask_dice": (dice * v).sum() / num_masks}
+        per_inst_bce = (_bce_logits(pred, tgt) * inside).sum((-2, -1)) / area  # [B, M]
+        prob, tgt = torch.sigmoid(pred) * inside, tgt * inside
+        inter = (prob * tgt).sum((-2, -1))
+        denom = prob.sum((-2, -1)) + tgt.sum((-2, -1)) + 1e-6
+        dice = 1.0 - (2.0 * inter + 1e-6) / denom
+        return {"loss_mask_bce": (per_inst_bce * v).sum() / num_masks,
+                "loss_mask_dice": (dice * v).sum() / num_masks}
 
 
 class DFINECriterion:

@@ -8,10 +8,13 @@ once per step and solved there exactly (ops/hungarian.py). Padded GT
 columns are masked to a high cost and their assignments dropped.
 
 Under torch.profiler a match records `train.match` with the children
-`train.match.costs`, `train.match.copy` (counts `bytes` device to host,
-`cells` copied, `valid_cells`: the copied entries of valid GT columns),
-`train.match.solve` (`solves`: linear_sum_assignment calls) and
-`train.match.upload` (`bytes` host to device); utils/profiling.py.
+`train.match.costs` (inside it, one `train.match.mask_costs` for each set
+with mask costs: counts `sets`, `cells` = B x Q x G x Hm x Wm and `gt_rows`
+= B x G, the padded GT rows it runs over), `train.match.copy` (counts
+`bytes` device to host, `cells` copied, `valid_cells`: the copied entries
+of valid GT columns; in `match_all_sets` also `valid_gt_rows`, the batch's
+valid GT rows), `train.match.solve` (`solves`: linear_sum_assignment calls)
+and `train.match.upload` (`bytes` host to device); utils/profiling.py.
 """
 
 from __future__ import annotations
@@ -114,7 +117,9 @@ def match_all_sets(output_sets: List[Dict[str, torch.Tensor]],
                           targets["boxes"], cfg)
         if (o.get("pred_masks") is not None and targets.get("masks") is not None
                 and (cfg.cost_mask > 0 or cfg.cost_mask_dice > 0)):
-            c = c + mask_matching_cost(o["pred_masks"], targets["masks"], cfg)
+            (B, Q, Hm, Wm), G = o["pred_masks"].shape, targets["masks"].shape[1]
+            with span("train.match.mask_costs", sets=1, cells=B * Q * G * Hm * Wm, gt_rows=B * G):
+                c = c + mask_matching_cost(o["pred_masks"], targets["masks"], cfg)
         return c
 
     with span("train.match"):
@@ -127,7 +132,7 @@ def match_all_sets(output_sets: List[Dict[str, torch.Tensor]],
             costs = costs.cpu().numpy()
             S, _, Q, _ = costs.shape
             sp.count(bytes=costs.nbytes + n_valid.nbytes, cells=costs.size,
-                     valid_cells=S * Q * int(n_valid.sum()))
+                     valid_cells=S * Q * int(n_valid.sum()), valid_gt_rows=int(n_valid.sum()))
         with span("train.match.solve", solves=S * int((n_valid > 0).sum())):
             assign = host_solve(costs, n_valid)
             go_g, go_valid = host_go_union(assign, n_valid, Q)

@@ -154,7 +154,7 @@ def test_a_training_steps_counts(one_step):
     assert shape == (S, B, Q, G)
     n = int(one_step.n_valid.sum())
     assert by_name["train.match.copy"].counts == {
-        "bytes": nbytes, "cells": S * B * Q * G, "valid_cells": S * Q * n}
+        "bytes": nbytes, "cells": S * B * Q * G, "valid_cells": S * Q * n, "valid_gt_rows": n}
     assert nbytes == S * B * Q * G * 4 + B * 8
     assert by_name["train.match.solve"].counts == {"solves": S * B}
     assert by_name["train.match.upload"].counts == {"bytes": S * B * G * 8 + B * Q * 9}
