@@ -5,6 +5,8 @@ translate_gt is branch-free, as in the JAX package."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .boxes import box_xyxy_to_cxcywh
@@ -24,6 +26,14 @@ def weighting_function(reg_max: int, up: float, reg_scale: float) -> torch.Tenso
     return torch.stack(values)
 
 
+@functools.lru_cache(maxsize=8)
+def _weighting_on(reg_max: int, up: float, reg_scale: float, device: torch.device):
+    """weighting_function on `device`, made once: its copy to the card would
+    wait for the host, which a CUDA graph's capture refuses
+    (train/loss_graphs.py). Read only."""
+    return weighting_function(reg_max, up, reg_scale).to(device)
+
+
 def distance2bbox(points: torch.Tensor, distance: torch.Tensor, reg_scale: float) -> torch.Tensor:
     """Decode per-edge distances into cxcywh boxes
     (reference arch/utils.py:119-142). points = [cx, cy, w, h]."""
@@ -41,7 +51,7 @@ def translate_gt(gt: torch.Tensor, reg_max: int, reg_scale: float, up: float):
     """Continuous distances -> (left-bin index as float, right weight, left
     weight) (reference arch/utils.py:267-327)."""
     gt = gt.reshape(-1)
-    fv = weighting_function(reg_max, up, reg_scale).to(gt.device)
+    fv = _weighting_on(reg_max, up, reg_scale, gt.device)
     closest_left = (fv[None, :] - gt[:, None] <= 0).sum(dim=1) - 1  # in [-1, reg_max]
     indices = closest_left.float()
     valid = (indices >= 0) & (indices < reg_max)

@@ -7,7 +7,11 @@ loss_labels_vfl :92-122, loss_boxes :124-143, loss_local :145-237, forward
 Every output set (final, aux layers, pre, encoder) is matched by one
 batched host solve per step (train/matcher.py). Boolean indexing is
 replaced by gathers and scatters with validity masks, as in the JAX package,
-so shapes stay static and nothing syncs but the matcher's one copy. FGL
+so shapes stay static and nothing syncs but the matcher's one copy. A call
+is `match` (the sets' costs, the copy, the host solve, the GO union) then
+`terms` (every loss term on that match): a function of tensors alone that
+reads nothing back to the host, which the training step replays as CUDA
+graphs on the card (train/loss_graphs.py). FGL
 targets are computed once per index set and reused across layers (the
 reference points are the layer-0 pre boxes for every layer); num_pos_neg of
 the final layer's DDF carries to the aux and dn layers, as in JAX. With
@@ -25,9 +29,8 @@ the shares add up to them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -147,7 +150,7 @@ def _ddf_masks(match: Match, targets, Q: int):
                       match["q"], torch.ones_like(match["valid"]), match["valid"])
     iv = targets.get("image_valid")
     if iv is None:
-        return mask, ~mask, torch.tensor(float(B), device=mask.device)
+        return mask, ~mask, torch.full((), float(B), device=mask.device)
     img = iv.bool()[:, None]
     return mask & img, ~mask & img, iv.float().sum()
 
@@ -276,8 +279,9 @@ class DFINECriterion:
         B, num_dn = positive.shape
         num_group = dn_meta["num_group"]
         Gd = num_dn // (2 * num_group)
-        q_idx = torch.from_numpy(np.concatenate(
-            [np.arange(Gd) + g * 2 * Gd for g in range(num_group)])).to(positive.device)
+        dev = positive.device
+        q_idx = (torch.arange(num_group, device=dev)[:, None] * (2 * Gd)
+                 + torch.arange(Gd, device=dev)).reshape(-1)
         valid = positive[:, q_idx]
         if "image_valid" in targets:
             valid = valid & targets["image_valid"][:, None]
@@ -312,6 +316,23 @@ class DFINECriterion:
                 add(loss_masks(out, targets, match, n_mask), suffix)
 
     def __call__(self, outputs: Dict[str, object], targets: Dict[str, torch.Tensor]):
+        return self.terms(outputs, targets, *self.match(outputs, targets))
+
+    def match(self, outputs: Dict[str, object], targets: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One batched match over every output set (reference :616-633):
+        assign [S, B, G], go_g [B, Q], go_valid [B, Q]
+        (train/matcher.py:match_all_sets)."""
+        sets = ([outputs] + list(outputs.get("aux_outputs", [])) + [outputs["pre_outputs"]]
+                + list(outputs["enc_aux_outputs"]))
+        return match_all_sets(sets, targets, self.mcfg)
+
+    def terms(self, outputs: Dict[str, object], targets: Dict[str, torch.Tensor],
+              assign: torch.Tensor, go_g: torch.Tensor, go_valid: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+        """Every loss term on `match`'s answer. Its tensors are its inputs,
+        and the Python values among the outputs (up, reg_scale, num_group,
+        the class-agnostic flag) and the sets present fix what it computes."""
         wd = self.cfg.weight_dict
         losses: Dict[str, torch.Tensor] = {}
 
@@ -320,11 +341,8 @@ class DFINECriterion:
                 if k in wd:
                     losses[k + suffix] = val * wd[k]
 
-        # ---- one batched match over every output set (reference :616-633)
         aux_sets = list(outputs.get("aux_outputs", []))
         enc_sets = list(outputs["enc_aux_outputs"])
-        sets = [outputs] + aux_sets + [outputs["pre_outputs"]] + enc_sets
-        assign, go_g, go_valid = match_all_sets(sets, targets, self.mcfg)
         B, G = targets["labels"].shape
         Q = outputs["pred_logits"].shape[1]
         dev = go_g.device

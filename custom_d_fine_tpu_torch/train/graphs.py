@@ -242,6 +242,14 @@ def _room() -> int:
             - torch.cuda.memory_allocated())
 
 
+def room_for_key(kept: Sequence) -> bool:
+    """A new key may be captured beside the `kept` ones (each with the
+    `need` its capture step took): fewer than MAX_KEYS are kept, and the
+    card has room for the largest need."""
+    need = max((k.need for k in kept), default=0)
+    return len(kept) < MAX_KEYS and not (need and _room() < need)
+
+
 class FrontGraphs:
     """The graphs of one training step function (train_step.make_train_step):
     `with graphs.engaged(model, x) as counts: model(x, ...)`."""
@@ -254,8 +262,7 @@ class FrontGraphs:
         """The key's chain; a new one while fewer than MAX_KEYS are kept and
         the card has room for the largest capture step's need; else None."""
         if key not in self.chains:
-            need = max((c.need for c in self.chains.values()), default=0)
-            if len(self.chains) >= MAX_KEYS or (need and _room() < need):
+            if not room_for_key(list(self.chains.values())):
                 return None
             self.chains[key] = _Chain()
         return self.chains[key]

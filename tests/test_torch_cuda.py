@@ -526,7 +526,9 @@ def _counters(graphs):
 
 def test_graphed_training_steps_match_eager_steps(dev, monkeypatch):
     """train/graphs.py on D-FINE-m, bs4 640^2, bf16 autocast. 3 steps with the
-    backbone and encoder replayed as CUDA graphs (the first captures them),
+    backbone and encoder replayed as CUDA graphs (the first captures them;
+    the criterion's loss terms replay theirs too, train/loss_graphs.py, and
+    the eager steps run both eagerly),
     each against three eager steps from a copy of the same state, batch and
     denoising draws (conv kernels x sqrt(6), so that the query selection
     does not tie): one as the step runs, one on a side stream, one on a side
@@ -631,3 +633,99 @@ def test_graphed_training_steps_match_eager_steps(dev, monkeypatch):
     state, m = step(state, batches[1], gen)
     assert tuple(a - c for a, c in zip(_counters(graphs), before)) == (12, 6, 0)
     assert math.isfinite(float(m["total_loss"])) and len(step.graphs.chains) == 3
+
+
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp(min=1e-300))
+
+
+@pytest.mark.parametrize("segment", [False, True])
+def test_graphed_loss_terms_match_eager_terms(dev, segment):
+    """train/loss_graphs.py on D-FINE-m, bs4 640^2 (with `segment`, the mask
+    head and masks at 160^2): three training forwards under bf16 autocast
+    with other targets each (12, 3 and 30 GTs an image, so a stale static
+    input would show), and on each the loss terms through the graphs (the
+    first call captures the key) and eagerly, with their gradients in the
+    decoder's outputs. Each loss term within rtol 1e-5, and each gradient
+    within a relative norm gap of 1e-5 (f32) or 2^-8 (bf16, one rounding):
+    the replay runs the same kernels on the same values, but its static
+    inputs are fresh allocations where the eager terms read views at an
+    offset, so a reduction may vectorise and sum in another order, and the
+    backward's scatter-adds sum in any order; a bf16 gradient rounds that
+    difference once. The gaps of the eager terms against themselves are
+    printed beside; on an H100 both read 0 at every step. Counters: 1
+    capture and 1 replay on the first call, 2 replays on the next two."""
+    import dataclasses
+    import math
+
+    from custom_d_fine_tpu_torch.configs import get_model_config
+    from custom_d_fine_tpu_torch.models.denoising import dn_layout, draw_dn_noise
+    from custom_d_fine_tpu_torch.models.dfine import build_model
+    from custom_d_fine_tpu_torch.train import loss_graphs
+    from custom_d_fine_tpu_torch.train.criterion import DFINECriterion, with_mask_losses
+
+    cfg, crit_cfg = get_model_config("m"), get_model_config("m").criterion
+    if segment:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                   enable_mask_head=True))
+        crit_cfg = with_mask_losses(crit_cfg)
+    model = build_model(cfg, num_classes=80, seed=1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(math.sqrt(6.0))
+    model = model.to(dev).to(memory_format=torch.channels_last).train()
+    criterion = DFINECriterion(crit_cfg, cfg.matcher, num_classes=80)
+    lg = loss_graphs.LossGraphs(criterion)
+    dec = model.decoder
+    _, num_dn, _ = dn_layout(dec.num_denoising, dec.dn_max_gt, dec.num_queries)
+    for i, n_gt in enumerate((12, 3, 30)):
+        b = _train_batches(dev, 1, 4, 640, seed=20 + i, n_gt=n_gt)[0]
+        targets = {k: b[k] for k in ("labels", "boxes", "valid")}
+        x = (b["images"].float() / 255.0).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        draws = {k: v.to(dev) for k, v in
+                 draw_dn_noise(torch.Generator().manual_seed(i), 4, num_dn, 80).items()}
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            outputs = model(x, targets=targets, dn_draws=draws, msda_value_dtype=torch.bfloat16)
+        if segment:
+            hm = outputs["pred_masks"].shape[-1]
+            g = torch.Generator(device=dev).manual_seed(i)
+            targets["masks"] = ((torch.rand(4, 100, hm, hm, device=dev, generator=g) < 0.3)
+                                & targets["valid"][..., None, None]).to(torch.uint8)
+        inputs = [t for t in dict.fromkeys(loss_graphs.flatten((outputs,))[1])
+                  if t.requires_grad]
+
+        def grads(losses):
+            total = torch.stack(list(losses.values())).sum()
+            got = torch.autograd.grad(total, inputs, allow_unused=True, retain_graph=True)
+            return [None if g is None else g.detach().double().cpu() for g in got]
+
+        before = (loss_graphs.replays, loss_graphs.captures, loss_graphs.eager)
+        got, counts = lg(model, x, outputs, targets)
+        got_grads = grads(got)
+        got = {k: v.detach().double().cpu() for k, v in got.items()}
+        assert tuple(a - c for a, c in zip((loss_graphs.replays, loss_graphs.captures,
+                                            loss_graphs.eager), before)) == \
+            (1, int(i == 0), 0)
+        assert counts == {"graph_units": 1, "eager_units": 0, "captures": int(i == 0)}
+        eager = [criterion(outputs, targets) for _ in range(2)]
+        want_grads = [grads(e) for e in eager]
+        want = [{k: v.detach().double().cpu() for k, v in e.items()} for e in eager]
+        assert list(got) == list(want[0])
+        loss_gap = max(_rel_gap(got[k], want[0][k]) for k in got)
+        noise = max(_rel_gap(want[1][k], want[0][k]) for k in got)
+        print(f"step {i}: loss terms {loss_gap:.3e} (eager vs eager {noise:.3e})")
+        for k in got:
+            assert torch.allclose(got[k], want[0][k], rtol=1e-5, atol=0.0), (i, k)
+        for t, a, w, w2 in zip(inputs, got_grads, want_grads[0], want_grads[1]):
+            assert (a is None) == (w is None), (i, t.shape)
+            if w is None:
+                continue
+            bound = 1e-5 if t.dtype == torch.float32 else 2.0 ** -8
+            gap = _rel_gap(a, w)
+            print(f"  grad {tuple(t.shape)} {t.dtype}: {gap:.3e} "
+                  f"(eager vs eager {_rel_gap(w2, w):.3e})")
+            assert gap <= bound, (i, tuple(t.shape), t.dtype, gap)
+        del outputs, inputs, eager

@@ -257,15 +257,23 @@ def _batches(cfg, n, B=2, img=160):
     return out
 
 
+def _loss_counters(since=(0, 0, 0)):
+    from custom_d_fine_tpu_torch.train import loss_graphs
+
+    now = (loss_graphs.replays, loss_graphs.captures, loss_graphs.eager)
+    return tuple(a - b for a, b in zip(now, since))
+
+
 def test_graphed_steps_equal_eager_steps_on_an_emulated_card(emulated_card, monkeypatch):
     """The whole mechanism on an emulated card (capture records the aten ops,
     replay reruns them into the captured tensors): 3 training steps of
-    tiny_config at 160^2, f32, with the front captured in step 1 and
-    replayed after, equal exactly 3 eager steps from the same state, batches
-    and draws: every loss term, grad_norm, gradient, BN buffer, parameter and
-    EMA entry. A hook on stages[1] sees the replayed output, the same static
-    tensor each step; a hook inside stages[1] runs that unit eagerly under a
-    new key; the counters say so."""
+    tiny_config at 160^2, f32, with the front and the criterion's loss terms
+    (train/loss_graphs.py) captured in step 1 and replayed after, equal
+    exactly 3 eager steps from the same state, batches and draws: every loss
+    term, grad_norm, gradient, BN buffer, parameter and EMA entry. A hook on
+    stages[1] sees the replayed output, the same static tensor each step; a
+    hook inside stages[1] runs that unit eagerly under a new key while the
+    loss terms replay theirs; the counters say so."""
     import copy
 
     from custom_d_fine_tpu_torch.train.train_step import build_training
@@ -281,11 +289,15 @@ def test_graphed_steps_equal_eager_steps_on_an_emulated_card(emulated_card, monk
     batches = _batches(cfg, 4)
     for i, b in enumerate(batches[:3]):
         n = (graphs.replays, graphs.captures, graphs.eager)
+        nl = _loss_counters()
         state, got = step(state, b, gen)
         assert (graphs.replays - n[0], graphs.captures - n[1], graphs.eager - n[2]) == \
             (6, 6 if i == 0 else 0, 0)
+        assert _loss_counters(nl) == (1, int(i == 0), 0)
         monkeypatch.setattr(graphs, "MAX_KEYS", 0)
+        nl = _loss_counters()
         eager, want = eager_step(eager, b, eager_gen)
+        assert _loss_counters(nl) == (0, 0, 1)
         monkeypatch.setattr(graphs, "MAX_KEYS", 5)
         for k in want:
             assert torch.equal(got[k], want[k]), (i, k)
@@ -302,7 +314,9 @@ def test_graphed_steps_equal_eager_steps_on_an_emulated_card(emulated_card, monk
 
     inner = state.model.backbone.stages[1].blocks[0].register_forward_hook(lambda *a: None)
     n = (graphs.replays, graphs.captures, graphs.eager)
+    nl = _loss_counters()
     state, got = step(state, batches[3], gen)
     inner.remove()
     assert (graphs.replays - n[0], graphs.captures - n[1], graphs.eager - n[2]) == (5, 5, 1)
+    assert _loss_counters(nl) == (1, 0, 0) and len(step.loss_graphs.keys) == 1
     assert len(step.graphs.chains) == 2 and 2 not in list(step.graphs.chains.values())[1].units
