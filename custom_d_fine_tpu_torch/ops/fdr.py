@@ -30,7 +30,7 @@ def weighting_function(reg_max: int, up: float, reg_scale: float) -> torch.Tenso
 def _weighting_on(reg_max: int, up: float, reg_scale: float, device: torch.device):
     """weighting_function on `device`, made once: its copy to the card would
     wait for the host, which a CUDA graph's capture refuses
-    (train/loss_graphs.py). Read only."""
+    (train/graphs.py). Read only."""
     return weighting_function(reg_max, up, reg_scale).to(device)
 
 

@@ -11,7 +11,7 @@ so shapes stay static and nothing syncs but the matcher's one copy. A call
 is `match` (the sets' costs, the copy, the host solve, the GO union) then
 `terms` (every loss term on that match): a function of tensors alone that
 reads nothing back to the host, which the training step replays as CUDA
-graphs on the card (train/loss_graphs.py). FGL
+graphs on the card (train/graphs.py). FGL
 targets are computed once per index set and reused across layers (the
 reference points are the layer-0 pre boxes for every layer); num_pos_neg of
 the final layer's DDF carries to the aux and dn layers, as in JAX. With

@@ -1,88 +1,138 @@
-"""CUDA graphs of the model's static-shape front in the training step.
+"""CUDA graphs in the training step, at two sites: the model's front and
+the criterion's loss terms.
 
-A training step's host dispatch, not the card, sets its time: the backbone
-and the hybrid encoder alone are some 1,700 small forward and 1,400 backward
-launches (every BatchNorm a handful). Their shapes are fixed by the input's,
-and nothing in them reads a value back to the host, so they run here as
-captured CUDA graphs, forward and backward; the decoder (its query
-selection's top-k) and the criterion (the matcher's host solve) stay eager.
+A training step's host dispatch, not the card, sets its time. Two parts of
+it are long chains of small launches on shapes fixed by the input's that
+read nothing back to the host; they replay as CUDA graphs, forward and
+backward, in graphed units:
+- the front: the backbone's stem, each backbone stage and the hybrid
+  encoder, a unit each (at D-FINE-M some 1,700 small forward and 1,400
+  backward launches). A unit is still called through `nn.Module.__call__`:
+  while a step's forward runs, `StepGraphs.engaged` sets its `forward` to
+  one that replays its graph, so hooks on a unit fire on every replay with
+  the replayed output. A replay cannot call a hook on a module inside a
+  unit, so such a unit runs eagerly. The decoder (its top-k) stays eager.
+- the loss terms, one unit: after the eager match (`DFINECriterion.match`:
+  the costs, their copy, the host solve, the GO union),
+  `DFINECriterion.terms` is a fixed chain of gathers, scatters and
+  reductions under validity masks (some 4,500 small forward ops and 1,100
+  backward nodes), captured returning the terms stacked.
 
-The units are the backbone's stem, each backbone stage and the encoder. Each
-is still called through `nn.Module.__call__`: while a step's forward runs,
-`FrontGraphs.engaged` sets the unit's `forward` to one that replays its
-graph, so hooks on a unit fire on every replay with the replayed output. A
-replay cannot call a hook on a module inside a unit, so such a unit runs
-eagerly.
+Both sites engage only where the step can observe that they may
+(`eager_reason`): on the card, in training, with grad, in one process (under
+torchrun the synced BatchNorm and the normalisers' `global_sum` all-reduce
+inside them) and outside a capture.
 
-The graphs engage where the step can observe that they may: the input is on
-the card, the model trains, grad is enabled, no other process shares the
-step (under torchrun the synced BatchNorm all-reduces inside the forward),
-and no capture is under way. Everything else runs eagerly: the CPU, eval,
-`no_grad`, torchrun.
+A unit's arguments flatten into a skeleton and its tensors: a tensor that
+appears twice is one input, and Python values stay in the skeleton. A key
+is the signature (shape, dtype, strides, device, grad flag) of a site's
+tensors (the front's: the stem's input), the autocast state, and the
+front's units that a hook inside keeps eager, or the terms' skeleton. A key
+owns a memory pool and, for each unit, a forward and a backward graph,
+captured the step the key is first seen: each unit's warm-up on a side
+stream, forward capture and replay, then the backward graphs in reverse
+order when the site's forward has ended, so that the captures run in the
+order of the replays, as graphs sharing a pool must. A unit's static input
+is an earlier unit's static output where it is handed that very tensor (the
+front's units chain without copies); a replay copies the other tensors into
+their static inputs in one launch. Warm-up leaves a unit's buffers
+(BatchNorm statistics) as it found them, and runs, as the capture does,
+with autocast's weight cache off: the casts are recomputed in every replay.
 
-A key (the stem input's shape, dtype, strides and device, the autocast
-state, and the units that a hook inside keeps eager) owns one memory pool
-and, for each graphed unit, a forward and a backward graph. A key is
-captured the first time it is seen, during that step: each unit as the
-forward reaches it (warm-up on a side stream, capture, then replay), and the
-backward graphs in reverse order when the forward ends, so that the captures
-run in the order of the replays (forward 1..N, backward N..1), as graphs
-sharing a pool must. A unit's static input is the previous unit's static
-output where it is handed that tensor, so nothing is copied between them.
-Warm-up leaves no trace: the unit's buffers (BatchNorm running statistics
-and counters) are restored before the first replay. A pool holds the
-front's activations and gradients (8.1 GB at D-FINE-m bs16 640^2, PERF.md),
-so a new key is captured only while fewer than MAX_KEYS are kept and the
-card has room for what the largest key's capture step took; otherwise the
-step runs eagerly.
+A pool holds what its captures allocated (the front's: 8.1 GB at D-FINE-M
+bs16 640^2, PERF.md), so each site captures a new key only while it keeps
+fewer than MAX_KEYS and the card has room for what its largest key's
+capture took; otherwise that step runs the site eagerly.
 
-Autocast's weight cache would keep the casts of the warm-up, so warm-up and
-capture run with it off (the casts are recomputed in every replay, from the
-parameters as they are then); the eager rest of the step keeps it.
+The terms' call hands out a copy of the replayed outputs, so terms kept
+from an earlier step keep their values. Gradients reach autograd as views of
+the backward graphs' static buffers (as `make_graphed_callables` hands
+them): a `.grad` may alias a buffer that the next backward replay
+overwrites. Each step reads its own: the training step sets every `.grad`
+to None before its backward and consumes them in its optimizer step, and
+the decoder's eager backward consumes the terms' gradients in that pass.
 
-Gradients reach autograd as views of the backward graphs' static buffers,
-as `torch.cuda.make_graphed_callables` hands them: a parameter's `.grad` may
-alias a buffer that the next backward replay overwrites. The training step
-sets every `.grad` to None before its backward and consumes them in its
-optimizer step, so each step reads its own.
-
-Counters: `replays`, `captures` and `eager` (units run eagerly in a step
-that would graph them) count always; under the profiler the step's
-`train.forward` span counts `graph_units`, `eager_units` and `captures`.
+Each site (`StepGraphs.front`, `.loss`) counts `replays`, `captures` and
+`eager` (units run eagerly in a step that would graph them); the profiled
+`train.forward` and `train.loss` spans count `graph_units`, `eager_units`
+and `captures`. A replay runs no Python: spans inside the terms
+(`train.loss.masks`) record only when they run eagerly.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.autograd.function import once_differentiable
 from torch.nn.modules import module as _module
-from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..parallel import dist
 
-MAX_KEYS = 5  # keys kept for one model: the Trainer's multiscale canvases (PERF.md)
+MAX_KEYS = 5  # keys kept by a site: the Trainer's multiscale canvases (PERF.md)
 WARMUP = 2    # eager forward and backward passes of a unit before its capture
-
-replays = 0   # unit forwards replayed
-captures = 0  # units captured (a forward and a backward graph each)
-eager = 0     # units run eagerly in a step that would graph them
 
 _HOOKS = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks", "_backward_pre_hooks")
 _GLOBAL_HOOKS = ("_global_forward_hooks", "_global_forward_pre_hooks",
                  "_global_backward_hooks", "_global_backward_pre_hooks")
+_TENSOR = object()  # marks a tensor's place in a skeleton
+
+
+def _flatten(tree, tensors: List[torch.Tensor], where: Dict[int, int]):
+    if isinstance(tree, torch.Tensor):
+        if id(tree) not in where:
+            where[id(tree)] = len(tensors)
+            tensors.append(tree)
+        return (_TENSOR, where[id(tree)])
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _flatten(v, tensors, where)) for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(_flatten(v, tensors, where) for v in tree))
+    return (None, tree)
+
+
+def flatten(tree) -> Tuple[Tuple, List[torch.Tensor]]:
+    """(skeleton, tensors) of `tree` (dicts, lists, tuples): a hashable
+    skeleton in which each tensor is its index in `tensors`, where it is put
+    once, and every other leaf is kept as it is."""
+    tensors: List[torch.Tensor] = []
+    return _flatten(tree, tensors, {}), tensors
+
+
+def unflatten(skeleton: Tuple, tensors: Sequence[torch.Tensor]):
+    kind, body = skeleton
+    if kind is _TENSOR:
+        return tensors[body]
+    if kind is dict:
+        return {k: unflatten(v, tensors) for k, v in body}
+    if kind in (list, tuple):
+        return kind(unflatten(v, tensors) for v in body)
+    return body
+
+
+def signature(tensors: Sequence[torch.Tensor]) -> Tuple:
+    """What a graph reads of its tensors: shape, dtype, strides, device and
+    grad flag of each."""
+    return tuple((t.shape, t.dtype, t.stride(), t.device, t.requires_grad) for t in tensors)
+
+
+def graph_key(tensors: Sequence[torch.Tensor], *rest) -> Tuple:
+    """What a key's graphs depend on: the signature of its tensors, the
+    autocast state on their device as the step observes it, and `rest`."""
+    dev = tensors[0].device.type
+    return (signature(tensors), torch.is_autocast_enabled(dev), torch.get_autocast_dtype(dev),
+            *rest)
 
 
 def units(model: nn.Module) -> List[nn.Module]:
-    """The graphed units of a DFINE model, in the order its forward calls them."""
+    """The graphed units of a DFINE model's front, in the order its forward calls them."""
     return [model.backbone.stem, *model.backbone.stages, model.encoder]
 
 
 def eager_reason(model: nn.Module, x: torch.Tensor) -> Optional[str]:
-    """Why a training forward of `model` on `x` runs eagerly, or None."""
+    """Why a training step of `model` on `x` runs its graphed sites eagerly, or None."""
     if not x.is_cuda:
         return "not on the card"
     if not model.training:
@@ -104,63 +154,78 @@ def hooked_inside(unit: nn.Module) -> bool:
     return any(getattr(m, h) for m in unit.modules() if m is not unit for h in _HOOKS)
 
 
-def graph_key(x: torch.Tensor, eager_units: Sequence[int]) -> Tuple:
-    """What a key's graphs depend on: the front's input and the autocast state
-    as the step observes them, and the units it runs eagerly."""
-    dev = x.device.type
-    return (tuple(x.shape), x.dtype, x.stride(), x.device, torch.is_autocast_enabled(dev),
-            torch.get_autocast_dtype(dev), tuple(eager_units))
-
-
 def _no_weight_cache(device_type: str):
     """The step's autocast state with the weight cache off, for warm-up and capture."""
     return torch.autocast(device_type, dtype=torch.get_autocast_dtype(device_type),
                           enabled=torch.is_autocast_enabled(device_type), cache_enabled=False)
 
 
-def _signature(leaves: Sequence[torch.Tensor]) -> Tuple:
-    return tuple((t.shape, t.dtype, t.stride(), t.requires_grad) for t in leaves)
+def _room() -> int:
+    """Bytes the card can still give this process: free on the device, and
+    held by the caching allocator but not allocated."""
+    return (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+            - torch.cuda.memory_allocated())
 
 
-class _Unit:
-    """One unit's graphs and static tensors under one key."""
+class Graphed:
+    """One unit's static inputs, forward and backward graphs and gradient
+    buffers under one key. The autograd surface is the inputs that take a
+    gradient, then `params`."""
 
-    def __init__(self, chain: "_Chain", module: nn.Module, forward, args: Tuple):
-        leaves, self.spec = tree_flatten(args)
-        self.sig = _signature(leaves)
-        self.inputs = tuple(chain.static_input(t) for t in leaves)
-        self.params = tuple(p for p in module.parameters() if p.requires_grad)
-        surface = [t for t in self.inputs if t.requires_grad] + list(self.params)
-        static_args = tree_unflatten(list(self.inputs), self.spec)
-        buffers = list(module.buffers())
+    def __init__(self, tensors: Sequence[torch.Tensor], earlier: Sequence["Graphed"],
+                 params: Sequence[torch.Tensor] = ()):
+        self.sig = signature(tensors)
+        self.inputs = [self._static_input(t, earlier) for t in tensors]
+        self.dest = [s.data for s in self.inputs]  # .data: copies leave the version alone
+        self.params = tuple(params)
+        self.surface = [s for s in self.inputs if s.requires_grad] + list(self.params)
+        self.bwd: Optional[torch.cuda.CUDAGraph] = None
+
+    @staticmethod
+    def _static_input(t: torch.Tensor, earlier: Sequence["Graphed"]) -> torch.Tensor:
+        """An earlier unit's static output where `t` is that tensor, else a
+        buffer the replays copy `t` into."""
+        for g in earlier:
+            for o in g.outputs:
+                if (o.data_ptr() == t.data_ptr() and o.shape == t.shape
+                        and o.stride() == t.stride() and o.dtype == t.dtype):
+                    return o.detach().requires_grad_(t.requires_grad)
+        with torch.no_grad():
+            s = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
+        return s.requires_grad_(t.requires_grad)
+
+    def capture_forward(self, fn: Callable, skeleton: Tuple, pool,
+                        buffers: Sequence[torch.Tensor] = ()) -> None:
+        """`fn` on the static inputs laid out as `skeleton`: WARMUP eager
+        forward and backward passes on a side stream, then the forward
+        graph in `pool`; `buffers` are left as they were."""
+        args = unflatten(skeleton, self.inputs)
         kept = [b.clone() for b in buffers]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                outs = [o for o in tree_flatten(forward(*static_args))[0] if o.requires_grad]
-                if outs and surface:
-                    torch.autograd.grad(outs, surface, [torch.ones_like(o) for o in outs],
-                                        allow_unused=True)
-        torch.cuda.current_stream().wait_stream(side)
-        self.fwd = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.fwd, pool=chain.pool):
-            out = forward(*static_args)
-        self.outputs, self.out_spec = tree_flatten(out)
+        with _no_weight_cache("cuda"):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    outs = [o for o in flatten(fn(*args))[1] if o.requires_grad]
+                    if outs and self.surface:
+                        torch.autograd.grad(outs, self.surface, [torch.ones_like(o) for o in outs],
+                                            allow_unused=True)
+            torch.cuda.current_stream().wait_stream(side)
+            self.fwd = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.fwd, pool=pool):
+                self.out_skeleton, self.outputs = flatten(fn(*args))
         for b, k in zip(buffers, kept):  # through .data: the capture's backward
             b.data.copy_(k)                # saved running_mean, and checks its version
-        self.bwd: Optional[torch.cuda.CUDAGraph] = None
 
     def capture_backward(self, pool) -> None:
         self.differentiable = [o.requires_grad for o in self.outputs]
         outs = [o for o in self.outputs if o.requires_grad]
-        surface = [t for t in self.inputs if t.requires_grad] + list(self.params)
         self.grad_outputs = [torch.empty_like(o) for o in outs]
         grads = iter(())
-        if outs and surface:
+        if outs and self.surface:
             self.bwd = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.bwd, pool=pool):
-                grads = iter(torch.autograd.grad(outs, surface, self.grad_outputs,
+                grads = iter(torch.autograd.grad(outs, self.surface, self.grad_outputs,
                                                  allow_unused=True))
         self.grads = ([next(grads, None) if t.requires_grad else None for t in self.inputs]
                       + [next(grads, None) for _ in self.params])
@@ -168,11 +233,12 @@ class _Unit:
         # accumulators, made on the capture stream, which the replays' would be
         self.outputs = [o.detach() for o in self.outputs]
 
-    def replay_forward(self, leaves: Sequence[torch.Tensor]) -> None:
-        for s, t in zip(self.inputs, leaves):
-            if s.data_ptr() != t.data_ptr():  # .data: the first step's backward
-                s.data.copy_(t)               # capture checks the input's version
+    def replay_forward(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        moved = [(s, t) for s, t in zip(self.dest, tensors) if s.data_ptr() != t.data_ptr()]
+        if moved:
+            torch._foreach_copy_([s for s, _ in moved], [t for _, t in moved])
         self.fwd.replay()
+        return self.outputs
 
     def replay_backward(self, grads: Sequence[torch.Tensor]) -> Tuple:
         wanted = [g for g, d in zip(grads, self.differentiable) if d]
@@ -186,13 +252,12 @@ class _Unit:
 
 class _Replay(torch.autograd.Function):
     """A unit's forward graph as an autograd node whose backward replays its
-    backward graph; the inputs are the unit's leaves, then its parameters."""
+    backward graph; the inputs are the unit's tensors, then its parameters."""
 
     @staticmethod
-    def forward(ctx, unit: _Unit, *tensors: torch.Tensor):
+    def forward(ctx, unit: Graphed, *tensors: torch.Tensor):
         ctx.unit = unit
-        unit.replay_forward(tensors[:len(unit.inputs)])
-        return tuple(o.detach() for o in unit.outputs)
+        return tuple(o.detach() for o in unit.replay_forward(tensors[:len(unit.inputs)]))
 
     @staticmethod
     @once_differentiable
@@ -200,94 +265,121 @@ class _Replay(torch.autograd.Function):
         return (None, *ctx.unit.replay_backward(grads))
 
 
-class _Chain:
+class Chain:
     """The graphed units of one key, in capture order, and their pool."""
 
     def __init__(self):
         self.pool = None  # made at the first capture
-        self.units: Dict[int, _Unit] = {}
+        self.units: Dict[int, Graphed] = {}
         self.complete = False  # the backward graphs are captured
         self.room = 0          # the card's room before the first capture
-        self.need = 0          # bytes of room the capture step took
+        self.need = 0          # bytes of room the key's capture took
 
-    def static_input(self, t: torch.Tensor) -> torch.Tensor:
-        """A unit's static input for leaf `t`: an earlier unit's static output
-        where `t` is that tensor, else a buffer the replays copy `t` into."""
-        for u in self.units.values():
-            for o in u.outputs:
-                if (o.data_ptr() == t.data_ptr() and o.shape == t.shape
-                        and o.stride() == t.stride() and o.dtype == t.dtype):
-                    return o.detach().requires_grad_(t.requires_grad)
-        return t.detach().clone().requires_grad_(t.requires_grad)
-
-    def capture(self, module: nn.Module, forward, args: Tuple) -> _Unit:
+    def capture(self, i: int, fn: Callable, skeleton: Tuple, tensors: Sequence[torch.Tensor],
+                params: Sequence[torch.Tensor] = (), buffers: Sequence[torch.Tensor] = ()
+                ) -> Graphed:
+        """Unit i's forward graph: `fn` on `tensors` laid out as `skeleton`."""
         if self.pool is None:
             self.room = _room()
             self.pool = torch.cuda.graph_pool_handle()
-        with _no_weight_cache("cuda"):
-            return _Unit(self, module, forward, args)
-
-    def finish(self) -> None:
-        for u in reversed(list(self.units.values())):
-            u.capture_backward(self.pool)
-        self.complete = True
-        if self.pool is not None:
-            self.need = max(self.room - _room(), 0)
+        unit = Graphed(tensors, list(self.units.values()), params)
+        unit.capture_forward(fn, skeleton, self.pool, buffers)
+        self.units[i] = unit
+        return unit
 
 
-def _room() -> int:
-    """Bytes the card can still give this process: free on the device, and
-    held by the caching allocator but not allocated."""
-    return (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
-            - torch.cuda.memory_allocated())
-
-
-def room_for_key(kept: Sequence) -> bool:
-    """A new key may be captured beside the `kept` ones (each with the
-    `need` its capture step took): fewer than MAX_KEYS are kept, and the
-    card has room for the largest need."""
-    need = max((k.need for k in kept), default=0)
-    return len(kept) < MAX_KEYS and not (need and _room() < need)
-
-
-class FrontGraphs:
-    """The graphs of one training step function (train_step.make_train_step):
-    `with graphs.engaged(model, x) as counts: model(x, ...)`."""
+class Keys:
+    """One site's chains by key, and its counters."""
 
     def __init__(self):
+        self.chains: Dict[Tuple, Chain] = {}
+        self.replays = 0   # units replayed
+        self.captures = 0  # units captured (a forward and a backward graph each)
+        self.eager = 0     # units run eagerly in a step that would graph them
+
+    def chain(self, key: Tuple) -> Optional[Chain]:
+        """The key's chain; a new one, kept once its capture completes, while
+        fewer than MAX_KEYS are kept and the card has room for the largest
+        need among them; else None."""
+        if key in self.chains:
+            return self.chains[key]
+        need = max((c.need for c in self.chains.values()), default=0)
+        if len(self.chains) >= MAX_KEYS or (need and _room() < need):
+            return None
+        return Chain()
+
+    def finish(self, key: Tuple, chain: Chain) -> None:
+        """Capture the chain's backward graphs, in reverse order, and keep it."""
+        for u in reversed(list(chain.units.values())):
+            u.capture_backward(chain.pool)
+        chain.complete = True
+        if chain.pool is not None:
+            chain.need = max(chain.room - _room(), 0)
+        self.chains[key] = chain
+
+    def tally(self, counts: Dict[str, int]) -> Dict[str, int]:
+        self.replays += counts["graph_units"]
+        self.captures += counts["captures"]
+        self.eager += counts["eager_units"]
+        return counts
+
+
+class StepGraphs:
+    """The graphs of one training step function (train_step.make_train_step):
+    `with graphs.engaged(model, x) as counts: outputs = model(x, ...)`, then
+    `losses, counts = graphs.loss_terms(model, x, outputs, targets)`."""
+
+    def __init__(self, criterion):
+        self.criterion = criterion
         self.model: Optional[nn.Module] = None
-        self.chains: Dict[Tuple, _Chain] = {}
+        self.front, self.loss = Keys(), Keys()
 
-    def chain(self, key: Tuple) -> Optional[_Chain]:
-        """The key's chain; a new one while fewer than MAX_KEYS are kept and
-        the card has room for the largest capture step's need; else None."""
-        if key not in self.chains:
-            if not room_for_key(list(self.chains.values())):
-                return None
-            self.chains[key] = _Chain()
-        return self.chains[key]
-
-    def engaged(self, model: nn.Module, x: torch.Tensor) -> "_Step":
+    def engaged(self, model: nn.Module, x: torch.Tensor) -> "_Front":
         """Around the model's forward in a training step whose front input is
         `x`. The context yields the step's counts (graph_units, eager_units,
         captures), final when it exits."""
         if eager_reason(model, x) is not None:
-            return _Step(self, None, [], (), None)
+            return _Front(self.front, None, [], (), None)
         if model is not self.model:  # the graphs read this model's parameters
-            self.model, self.chains = model, {}
+            self.model, self.front.chains = model, {}
         mods = units(model)
         hooked = tuple(i for i, u in enumerate(mods) if hooked_inside(u))
-        key = graph_key(x, hooked)
-        chain = self.chain(key) if len(hooked) < len(mods) else None
-        return _Step(self, chain, mods, hooked, key)
+        key = graph_key([x], hooked)
+        chain = self.front.chain(key) if len(hooked) < len(mods) else None
+        return _Front(self.front, chain, mods, hooked, key)
+
+    def loss_terms(self, model: nn.Module, x: torch.Tensor, outputs, targets
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
+        """The criterion's loss terms for a step whose model forward took
+        `x`, and their counts: the match eagerly, the terms replayed."""
+        args = (outputs, targets, *self.criterion.match(outputs, targets))
+        chain = None
+        if eager_reason(model, x) is None:
+            skeleton, tensors = flatten(args)
+            key = graph_key(tensors, skeleton)
+            chain = self.loss.chain(key)
+        if chain is None:
+            return self.criterion.terms(*args), self.loss.tally(
+                {"graph_units": 0, "eager_units": 1, "captures": 0})
+        new = int(not chain.complete)
+        if new:
+            def stacked(*a):  # the terms' names, and their values stacked
+                losses = self.criterion.terms(*a)
+                return tuple(losses), torch.stack(list(losses.values()))
+            chain.capture(0, stacked, skeleton, tensors)
+            self.loss.finish(key, chain)
+        unit = chain.units[0]
+        names, stacked = unflatten(unit.out_skeleton, _Replay.apply(unit, *tensors))
+        return (dict(zip(names, stacked.clone().unbind())),
+                self.loss.tally({"graph_units": 1, "eager_units": 0, "captures": new}))
 
 
-class _Step:
-    """One step's forward with the units' `forward`s set to `call`."""
+class _Front:
+    """One step's forward with the front units' `forward`s set to `call`."""
 
-    def __init__(self, graphs: FrontGraphs, chain: Optional[_Chain], mods: List[nn.Module],
+    def __init__(self, keys: Keys, chain: Optional[Chain], mods: List[nn.Module],
                  hooked: Tuple[int, ...], key):
-        self.graphs, self.chain, self.mods, self.hooked, self.key = graphs, chain, mods, hooked, key
+        self.keys, self.chain, self.mods, self.hooked, self.key = keys, chain, mods, hooked, key
         self.counts = {"graph_units": 0, "eager_units": 0, "captures": 0}
         self.last = -1  # the last unit replayed: replays follow the capture order
         self.saved: List[Tuple[nn.Module, object]] = []
@@ -299,43 +391,30 @@ class _Step:
         return self.counts
 
     def __exit__(self, exc_type, *exc) -> bool:
-        global replays, captures, eager
         for u, own in self.saved:
             if own is None:
                 del u.forward
             else:
                 u.forward = own
-        chain = self.chain
-        if chain is not None and not chain.complete:
-            if exc_type is None:
-                chain.finish()
-            else:  # a capture cut short: drop the key
-                self.graphs.chains.pop(self.key, None)
-        replays += self.counts["graph_units"]
-        captures += self.counts["captures"]
-        eager += self.counts["eager_units"]
+        if self.chain is not None and not self.chain.complete and exc_type is None:
+            self.keys.finish(self.key, self.chain)  # a capture cut short is not kept
+        self.keys.tally(self.counts)
         return False
 
     def call(self, i: int, module: nn.Module, forward, *args):
-        leaves = tree_flatten(args)[0]
-        unit = self.graphed(i, module, forward, args, leaves)
-        if unit is None:
+        """Unit i replayed, captured first where the key is new, or run eagerly."""
+        skeleton, tensors = flatten(args)
+        chain, unit = self.chain, None
+        if chain is not None and i not in self.hooked and i > self.last:
+            unit = chain.units.get(i)
+            if unit is None and not chain.complete:
+                unit = chain.capture(i, forward, skeleton, tensors,
+                                     [p for p in module.parameters() if p.requires_grad],
+                                     list(module.buffers()))
+                self.counts["captures"] += 1
+        if unit is None or signature(tensors) != unit.sig:
             self.counts["eager_units"] += 1
             return forward(*args)
         self.last = i
         self.counts["graph_units"] += 1
-        out = _Replay.apply(unit, *leaves, *unit.params)
-        return tree_unflatten(list(out), unit.out_spec)
-
-    def graphed(self, i: int, module: nn.Module, forward, args: Tuple,
-                leaves: List[torch.Tensor]) -> Optional[_Unit]:
-        """Unit i's graphs if this call may replay them, captured first where
-        the key is new; None to run it eagerly."""
-        chain = self.chain
-        if chain is None or i in self.hooked or i <= self.last:
-            return None
-        unit = chain.units.get(i)
-        if unit is None and not chain.complete:
-            unit = chain.units[i] = chain.capture(module, forward, args)
-            self.counts["captures"] += 1
-        return unit if unit is not None and _signature(leaves) == unit.sig else None
+        return unflatten(unit.out_skeleton, _Replay.apply(unit, *tensors, *unit.params))

@@ -8,9 +8,9 @@ around the forward, with the MSDA value map in bf16 as its pallas_sep_fast
 takes it; the criterion runs in f32, as in both (train.py:569-575). The JAX
 package's make_train_multi_step (a lax.scan over K steps) hides its TPU
 host's dispatch cost; its counterpart here reaches the backbone and the
-hybrid encoder (train/graphs.py) and the criterion's loss terms after the
-match (train/loss_graphs.py), which replay as CUDA graphs, forward and
-backward, on the card; the decoder, the matcher and the update stay eager.
+hybrid encoder and the criterion's loss terms after the match, which replay
+as CUDA graphs, forward and backward, on the card (train/graphs.py); the
+decoder, the matcher and the update stay eager.
 
 `build_training` assembles model, criterion, optimizer and state from the
 registry, as tools/bench_train.py:36-58 and train/trainer.py:160-190 do. Like
@@ -20,8 +20,8 @@ raises when there is no card.
 Under torch.profiler a step records spans (utils/profiling.py): the root
 `train.step` (count `images`), then `train.forward` (counts `graph_units`,
 `eager_units`, `captures`: train/graphs.py), `train.loss` (the same
-counts for the loss terms: train/loss_graphs.py; it holds the matcher's
-`train.match`, train/matcher.py), `train.backward`,
+counts for the loss terms; it holds the matcher's `train.match`,
+train/matcher.py), `train.backward`,
 `train.optimizer` and `train.ema`.
 """
 
@@ -41,8 +41,7 @@ from ..parallel.dist import batch_rows
 from ..utils.profiling import span
 from .criterion import DFINECriterion, with_mask_losses
 from .ema import ema_update
-from .graphs import FrontGraphs
-from .loss_graphs import LossGraphs
+from .graphs import StepGraphs
 from .optim import Optimizer
 
 
@@ -82,10 +81,8 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
     loss terms are then this process's shares of the global batch's
     (train/criterion.py), and grad_norm is the global batch's. On the card the
     model's front and the criterion's loss terms replay CUDA graphs kept by
-    this step function, in `step.graphs` (train/graphs.py) and
-    `step.loss_graphs` (train/loss_graphs.py)."""
-    graphs = FrontGraphs()
-    loss_graphs = LossGraphs(criterion)
+    this step function, in `step.graphs` (train/graphs.py)."""
+    graphs = StepGraphs(criterion)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator):
@@ -111,7 +108,7 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
                                     msda_value_dtype=torch.bfloat16 if bf16 else None)
                 sp.count(**counts)
             with span("train.loss") as sp:
-                losses, counts = loss_graphs(model, x, outputs, targets)
+                losses, counts = graphs.loss_terms(model, x, outputs, targets)
                 sp.count(**counts)
                 total = torch.stack(list(losses.values())).sum()
             with span("train.backward"):
@@ -129,7 +126,6 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
         return state, metrics
 
     train_step.graphs = graphs
-    train_step.loss_graphs = loss_graphs
     return train_step
 
 

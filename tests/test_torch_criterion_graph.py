@@ -1,95 +1,37 @@
 """The criterion split into its match and its loss terms, and the terms'
-CUDA graphs (train/criterion.py, train/loss_graphs.py), on the CPU, on the
+CUDA graphs (train/criterion.py, train/graphs.py), on the CPU, on the
 training outputs of tests/helpers.py:tiny_config (160^2, batch 2, f32,
 masks at 20^2):
   - `match` then `terms` equal the criterion as it was before the split
     (`_unsplit`, kept here to hold the split to it), bitwise, losses and
     their gradients in the decoder's outputs, for detect, segment and the
     class-agnostic encoder set;
-  - the graphs' key follows the batch, the GT count, the mask size and the
-    class-agnostic flag, and nothing else a step can vary;
-  - the terms run eagerly on the CPU, in eval mode, with grad disabled, in
-    several processes and during a capture;
+  - the class-agnostic flag alone changes the terms' key;
   - the denoising matches' query indices, now made on the device, equal the
     numpy ones they replace;
-  - the whole mechanism on an emulated card (capture records the aten ops,
-    replay reruns them: tests/test_torch_graphs.py) against the eager terms
-    over three calls on other outputs and targets, bitwise, with the
-    counters and the cap on keys;
+  - the terms' graphs on an emulated card (tests/torch_emulated_card.py)
+    against the eager terms over three calls on other outputs and targets,
+    bitwise, with the counters and the cap on keys;
   - the `train.loss` span's counts in profiled training steps on the
     emulated card, and the share benchmark/metrics/loss.graph_share.train.py
     reads from them.
+tests/test_torch_graphs.py holds what the terms share with the front (what
+keeps them eager, the key, the cap and the room rule);
 tests/test_torch_cuda.py holds the real graphs against the eager terms on
 the card."""
-
-import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from custom_d_fine_tpu_torch.models.denoising import dn_layout, draw_dn_noise
-from custom_d_fine_tpu_torch.models.dfine import build_model
 from custom_d_fine_tpu_torch.parallel.dist import global_sum
-from custom_d_fine_tpu_torch.train import graphs, loss_graphs
-from custom_d_fine_tpu_torch.train.criterion import (DFINECriterion, _ddf_counts, loss_masks,
-                                                     with_mask_losses)
+from custom_d_fine_tpu_torch.train import graphs
+from custom_d_fine_tpu_torch.train.criterion import DFINECriterion, _ddf_counts, loss_masks
 from custom_d_fine_tpu_torch.train.matcher import match_all_sets
 
-from helpers import tiny_config
-from test_torch_graphs import ON_CARD, _batches, emulated_card  # noqa: F401  (fixture)
-from torch_jax_models import port_config
+from torch_emulated_card import (CASES, NC, batches, cases, config,  # noqa: F401  (fixtures)
+                                 emulated_card)
 from torch_threads import few_threads  # noqa: F401  (autouse)
-
-NC = 4
-CASES = ("detect", "segment", "agnostic")
-
-
-def _config(case):
-    cfg = port_config(tiny_config(enable_mask_head=case == "segment"))
-    if case == "agnostic":
-        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
-            cfg.decoder, query_select_method="agnostic"))
-    return cfg
-
-
-class _Case:
-    """A tiny model in train mode and its criterion."""
-
-    def __init__(self, case):
-        self.cfg = _config(case)
-        self.model = build_model(self.cfg, num_classes=NC, seed=0).train()
-        crit = self.cfg.criterion
-        if self.cfg.decoder.enable_mask_head:
-            crit = with_mask_losses(crit)
-        self.criterion = DFINECriterion(crit, self.cfg.matcher, num_classes=NC)
-
-    def step_inputs(self, seed=0, B=2, G=None, img=160, image_valid=False):
-        """(x, outputs, targets) of one training forward."""
-        rng = np.random.default_rng(seed)
-        G = G or self.cfg.max_gt
-        valid = np.arange(G)[None] < rng.integers(1, min(G, 6), (B, 1))
-        boxes = np.concatenate([rng.uniform(0.3, 0.7, (B, G, 2)),
-                                rng.uniform(0.1, 0.2, (B, G, 2))], -1)
-        targets = {"labels": torch.from_numpy(rng.integers(0, NC, (B, G))),
-                   "boxes": torch.from_numpy(boxes.astype(np.float32)),
-                   "valid": torch.from_numpy(valid)}
-        if image_valid:
-            targets["image_valid"] = torch.tensor([True] * (B - 1) + [False])
-        if self.cfg.decoder.enable_mask_head:
-            hm = 2 * img // 16  # twice the finest level (stride 16)
-            m = (rng.uniform(size=(B, G, hm, hm)) < 0.3) & valid[..., None, None]
-            targets["masks"] = torch.from_numpy(m.astype(np.uint8))
-        x = torch.from_numpy(rng.uniform(0, 1, (B, 3, img, img)).astype(np.float32))
-        dec = self.model.decoder
-        _, num_dn, _ = dn_layout(dec.num_denoising, dec.dn_max_gt, dec.num_queries)
-        draws = draw_dn_noise(torch.Generator().manual_seed(seed), B, num_dn, NC)
-        return x, self.model(x, targets=targets, dn_draws=draws), targets
-
-
-@pytest.fixture(scope="module")
-def cases():
-    return {c: _Case(c) for c in CASES}
 
 
 def _dn_match_numpy(dn_meta, targets):
@@ -188,7 +130,7 @@ def _unsplit(crit, outputs, targets):
 
 def _differentiable(outputs):
     """The decoder's output tensors that take a gradient, each once."""
-    return [t for t in dict.fromkeys(loss_graphs.flatten((outputs,))[1]) if t.requires_grad]
+    return [t for t in graphs.flatten(outputs)[1] if t.requires_grad]
 
 
 def _grads(losses, inputs):
@@ -216,27 +158,6 @@ def test_match_then_terms_equal_the_criterion_before_the_split(cases, case):
     assert all(g is not None for g in _grads(got, [outputs["pred_logits"]]))
 
 
-def _key(c, **kw):
-    _, outputs, targets = c.step_inputs(**kw)
-    return loss_graphs.loss_key(*loss_graphs.flatten(
-        (outputs, targets, *c.criterion.match(outputs, targets))))
-
-
-def test_the_key_follows_the_batch_the_gt_count_the_mask_size_and_the_agnostic_flag(cases):
-    seg, det = cases["segment"], cases["detect"]
-    key = _key(seg)
-    assert _key(seg, seed=1) == key  # other images, boxes, labels, masks and counts
-    det_key = _key(det)
-    assert _key(det, seed=1) == det_key and _key(det, img=192) == det_key  # no mask: no size
-    changed = [_key(seg, B=3), _key(seg, G=8), _key(seg, img=192), det_key,
-               _key(cases["agnostic"])]
-    assert len({key, *changed}) == len(changed) + 1
-    args = loss_graphs.flatten((torch.zeros(2),))
-    plain = loss_graphs.loss_key(*args)
-    with torch.autocast("cpu", dtype=torch.bfloat16):
-        assert loss_graphs.loss_key(*args) != plain
-
-
 def test_the_agnostic_key_differs_by_its_flag_alone(cases):
     """The class-agnostic flag is a Python value of the key: flipped on the
     same tensors, the key changes."""
@@ -244,31 +165,8 @@ def test_the_agnostic_key_differs_by_its_flag_alone(cases):
     _, outputs, targets = c.step_inputs()
     args = (outputs, targets, *c.criterion.match(outputs, targets))
     flipped = ({**outputs, "enc_meta": {"class_agnostic": False}},) + args[1:]
-    assert loss_graphs.loss_key(*loss_graphs.flatten(args)) != \
-        loss_graphs.loss_key(*loss_graphs.flatten(flipped))
-
-
-@pytest.mark.parametrize("case", ["cpu", "eval", "no_grad", "world", "capturing"])
-def test_what_keeps_the_terms_eager(cases, monkeypatch, case):
-    c = cases["detect"]
-    x, outputs, targets = c.step_inputs()
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: case == "capturing")
-    if case == "world":  # the other process's counts are zeros
-        monkeypatch.setattr(graphs.dist, "world", lambda: (2, 0))
-        monkeypatch.setattr(torch.distributed, "all_reduce", lambda t: None)
-    lg = loss_graphs.LossGraphs(c.criterion)
-    n = (loss_graphs.replays, loss_graphs.captures, loss_graphs.eager)
-    try:
-        c.model.train(case != "eval")
-        with torch.set_grad_enabled(case != "no_grad"):
-            got, counts = lg(c.model, x if case == "cpu" else ON_CARD, outputs, targets)
-    finally:
-        c.model.train()
-    assert counts == {"graph_units": 0, "eager_units": 1, "captures": 0} and not lg.keys
-    assert (loss_graphs.replays - n[0], loss_graphs.captures - n[1],
-            loss_graphs.eager - n[2]) == (0, 0, 1)
-    want = c.criterion(outputs, targets)
-    assert list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want)
+    (s1, t1), (s2, t2) = (graphs.flatten(a) for a in (args, flipped))
+    assert graphs.graph_key(t1, s1) != graphs.graph_key(t2, s2)
 
 
 @pytest.mark.parametrize("num_dn,num_group,image_valid", [(20, 1, False), (60, 3, True),
@@ -296,25 +194,25 @@ def test_graphed_terms_equal_eager_terms_on_an_emulated_card(cases, emulated_car
     terms' bitwise. A new batch size is a new key; past MAX_KEYS it runs
     eagerly."""
     c = cases[case]
-    lg = loss_graphs.LossGraphs(c.criterion)
+    step = graphs.StepGraphs(c.criterion)
+    keys = step.loss
     for i in range(3):
         x, outputs, targets = c.step_inputs(seed=10 + i)
-        n = (loss_graphs.replays, loss_graphs.captures, loss_graphs.eager)
-        got, counts = lg(c.model, x, outputs, targets)
+        got, counts = step.loss_terms(c.model, x, outputs, targets)
         assert counts == {"graph_units": 1, "eager_units": 0, "captures": int(i == 0)}
-        assert (loss_graphs.replays - n[0], loss_graphs.captures - n[1],
-                loss_graphs.eager - n[2]) == (1, int(i == 0), 0)
+        assert (keys.replays, keys.captures, keys.eager) == (i + 1, 1, 0)
         want = c.criterion(outputs, targets)
         inputs = _differentiable(outputs)
         _assert_same(got, want, _grads(got, inputs), _grads(want, inputs))
-    assert len(lg.keys) == 1
+    assert len(keys.chains) == 1 and not step.front.chains
     monkeypatch.setattr(graphs, "MAX_KEYS", 1)
     x, outputs, targets = c.step_inputs(B=3)
-    got, counts = lg(c.model, x, outputs, targets)
-    assert counts == {"graph_units": 0, "eager_units": 1, "captures": 0} and len(lg.keys) == 1
+    got, counts = step.loss_terms(c.model, x, outputs, targets)
+    assert counts == {"graph_units": 0, "eager_units": 1, "captures": 0} and len(keys.chains) == 1
     monkeypatch.setattr(graphs, "MAX_KEYS", 5)
-    got, counts = lg(c.model, x, outputs, targets)
-    assert counts == {"graph_units": 1, "eager_units": 0, "captures": 1} and len(lg.keys) == 2
+    got, counts = step.loss_terms(c.model, x, outputs, targets)
+    assert counts == {"graph_units": 1, "eager_units": 0, "captures": 1} and len(keys.chains) == 2
+    assert (keys.replays, keys.captures, keys.eager) == (4, 2, 1)
     want = c.criterion(outputs, targets)
     assert all(torch.equal(got[k], want[k]) for k in want)
 
@@ -330,12 +228,12 @@ def test_the_loss_span_counts_and_the_share_they_give(emulated_card, monkeypatch
     from custom_d_fine_tpu_torch.train.train_step import build_training
     from custom_d_fine_tpu_torch.utils.profiling import clear_spans, spans
 
-    cfg = _config("detect")
+    cfg = config("detect")
     step, state = build_training(cfg, NC, device="cpu", bf16=False, seed=0)
     gen = torch.Generator().manual_seed(0)
     clear_spans()
     with profile(activities=[ProfilerActivity.CPU]):
-        for i, b in enumerate(_batches(cfg, 3)):
+        for i, b in enumerate(batches(cfg, 3)):
             if i == 2:
                 monkeypatch.setattr(graphs, "eager_reason", lambda m, x: "not on the card")
             state, _ = step(state, b, gen)

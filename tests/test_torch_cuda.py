@@ -520,15 +520,15 @@ def _gap(a, b) -> float:
     return (num / max(den, 1e-300)) ** 0.5
 
 
-def _counters(graphs):
-    return graphs.replays, graphs.captures, graphs.eager
+def _counters(keys):
+    return keys.replays, keys.captures, keys.eager
 
 
 def test_graphed_training_steps_match_eager_steps(dev, monkeypatch):
     """train/graphs.py on D-FINE-m, bs4 640^2, bf16 autocast. 3 steps with the
     backbone and encoder replayed as CUDA graphs (the first captures them;
-    the criterion's loss terms replay theirs too, train/loss_graphs.py, and
-    the eager steps run both eagerly),
+    the criterion's loss terms replay theirs too, and the eager steps run
+    both eagerly),
     each against three eager steps from a copy of the same state, batch and
     denoising draws (conv kernels x sqrt(6), so that the query selection
     does not tie): one as the step runs, one on a side stream, one on a side
@@ -550,8 +550,8 @@ def test_graphed_training_steps_match_eager_steps(dev, monkeypatch):
     they found them. Then, on the graphed state: a forward hook on stages[1]
     fires on every replay and sees the replayed output (its static buffer,
     the same on every step); a hook inside stages[1] runs that unit eagerly
-    (a new key, 5 units captured) and the counters say so; a second input
-    shape captures its own graphs."""
+    (a new key, 5 units captured) and the front's counters say so; a second
+    input shape captures its own graphs."""
     import math
 
     from custom_d_fine_tpu_torch.configs import get_model_config
@@ -568,16 +568,17 @@ def test_graphed_training_steps_match_eager_steps(dev, monkeypatch):
                 m.weight.mul_(math.sqrt(6.0))
     step, state = build_training("m", 80, seed=0, bf16=True, state_dict=ref.state_dict())
     eager_step, _ = build_training("m", 80, seed=0, bf16=True)
+    front = step.graphs.front
     batches = _train_batches(dev, 5, 4, 640)
     gen = torch.Generator().manual_seed(3)
     gaps, noise = {}, {}  # by kind: graphed vs eager each step; the largest eager vs eager
     for i, b in enumerate(batches[:3]):
         drawn = gen.get_state()
         copies = [copy.deepcopy(state) for _ in range(3)]
-        before = _counters(graphs)
+        before = _counters(front)
         state, m = step(state, b, gen)
         got = _step_parts(state, m)
-        assert tuple(a - c for a, c in zip(_counters(graphs), before)) == \
+        assert tuple(a - c for a, c in zip(_counters(front), before)) == \
             ((6, 6, 0) if i == 0 else (6, 0, 0))
         monkeypatch.setattr(graphs, "MAX_KEYS", 0)  # the eager steps keep no key
         eager = []
@@ -611,28 +612,28 @@ def test_graphed_training_steps_match_eager_steps(dev, monkeypatch):
     seen = []
     h = stage1.register_forward_hook(
         lambda m, a, out: seen.append((out.data_ptr(), float(out.detach().float().sum()))))
-    before = _counters(graphs)
+    before = _counters(front)
     for b in batches[3:5]:
         state, _ = step(state, b, gen)
     h.remove()
-    (chain,) = step.graphs.chains.values()
+    (chain,) = front.chains.values()
     static = chain.units[2].outputs[0]
     assert [p for p, _ in seen] == [static.data_ptr()] * 2
     assert all(math.isfinite(s) for _, s in seen)
-    assert tuple(a - c for a, c in zip(_counters(graphs), before)) == (12, 0, 0)
+    assert tuple(a - c for a, c in zip(_counters(front), before)) == (12, 0, 0)
 
     inner = stage1.blocks[0].register_forward_hook(lambda m, a, out: None)
-    before = _counters(graphs)
+    before = _counters(front)
     state, m = step(state, batches[0], gen)
     inner.remove()
-    assert tuple(a - c for a, c in zip(_counters(graphs), before)) == (5, 5, 1)
-    assert math.isfinite(float(m["total_loss"])) and len(step.graphs.chains) == 2
+    assert tuple(a - c for a, c in zip(_counters(front), before)) == (5, 5, 1)
+    assert math.isfinite(float(m["total_loss"])) and len(front.chains) == 2
 
-    before = _counters(graphs)
+    before = _counters(front)
     state, m = step(state, _train_batches(dev, 1, 4, 576, seed=9)[0], gen)
     state, m = step(state, batches[1], gen)
-    assert tuple(a - c for a, c in zip(_counters(graphs), before)) == (12, 6, 0)
-    assert math.isfinite(float(m["total_loss"])) and len(step.graphs.chains) == 3
+    assert tuple(a - c for a, c in zip(_counters(front), before)) == (12, 6, 0)
+    assert math.isfinite(float(m["total_loss"])) and len(front.chains) == 3
 
 
 def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -642,13 +643,14 @@ def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
 
 @pytest.mark.parametrize("segment", [False, True])
 def test_graphed_loss_terms_match_eager_terms(dev, segment):
-    """train/loss_graphs.py on D-FINE-m, bs4 640^2 (with `segment`, the mask
-    head and masks at 160^2): three training forwards under bf16 autocast
-    with other targets each (12, 3 and 30 GTs an image, so a stale static
-    input would show), and on each the loss terms through the graphs (the
-    first call captures the key) and eagerly, with their gradients in the
-    decoder's outputs. Each loss term within rtol 1e-5, and each gradient
-    within a relative norm gap of 1e-5 (f32) or 2^-8 (bf16, one rounding):
+    """The loss terms' graphs (train/graphs.py) on D-FINE-m, bs4 640^2 (with
+    `segment`, the mask head and masks at 160^2): three training forwards
+    under bf16 autocast with other targets each (12, 3 and 30 GTs an image,
+    so a stale static input would show), and on each the loss terms through
+    the graphs (the first call captures the key) and eagerly, with their
+    gradients in the decoder's outputs. Each loss term within rtol 1e-5, and
+    each gradient within a relative norm gap of 1e-5 (f32) or 2^-8 (bf16, one
+    rounding):
     the replay runs the same kernels on the same values, but its static
     inputs are fresh allocations where the eager terms read views at an
     offset, so a reduction may vectorise and sum in another order, and the
@@ -662,7 +664,7 @@ def test_graphed_loss_terms_match_eager_terms(dev, segment):
     from custom_d_fine_tpu_torch.configs import get_model_config
     from custom_d_fine_tpu_torch.models.denoising import dn_layout, draw_dn_noise
     from custom_d_fine_tpu_torch.models.dfine import build_model
-    from custom_d_fine_tpu_torch.train import loss_graphs
+    from custom_d_fine_tpu_torch.train import graphs
     from custom_d_fine_tpu_torch.train.criterion import DFINECriterion, with_mask_losses
 
     cfg, crit_cfg = get_model_config("m"), get_model_config("m").criterion
@@ -677,7 +679,8 @@ def test_graphed_loss_terms_match_eager_terms(dev, segment):
                 m.weight.mul_(math.sqrt(6.0))
     model = model.to(dev).to(memory_format=torch.channels_last).train()
     criterion = DFINECriterion(crit_cfg, cfg.matcher, num_classes=80)
-    lg = loss_graphs.LossGraphs(criterion)
+    step_graphs = graphs.StepGraphs(criterion)
+    keys = step_graphs.loss
     dec = model.decoder
     _, num_dn, _ = dn_layout(dec.num_denoising, dec.dn_max_gt, dec.num_queries)
     for i, n_gt in enumerate((12, 3, 30)):
@@ -694,21 +697,18 @@ def test_graphed_loss_terms_match_eager_terms(dev, segment):
             g = torch.Generator(device=dev).manual_seed(i)
             targets["masks"] = ((torch.rand(4, 100, hm, hm, device=dev, generator=g) < 0.3)
                                 & targets["valid"][..., None, None]).to(torch.uint8)
-        inputs = [t for t in dict.fromkeys(loss_graphs.flatten((outputs,))[1])
-                  if t.requires_grad]
+        inputs = [t for t in graphs.flatten(outputs)[1] if t.requires_grad]
 
         def grads(losses):
             total = torch.stack(list(losses.values())).sum()
             got = torch.autograd.grad(total, inputs, allow_unused=True, retain_graph=True)
             return [None if g is None else g.detach().double().cpu() for g in got]
 
-        before = (loss_graphs.replays, loss_graphs.captures, loss_graphs.eager)
-        got, counts = lg(model, x, outputs, targets)
+        before = _counters(keys)
+        got, counts = step_graphs.loss_terms(model, x, outputs, targets)
         got_grads = grads(got)
         got = {k: v.detach().double().cpu() for k, v in got.items()}
-        assert tuple(a - c for a, c in zip((loss_graphs.replays, loss_graphs.captures,
-                                            loss_graphs.eager), before)) == \
-            (1, int(i == 0), 0)
+        assert tuple(a - c for a, c in zip(_counters(keys), before)) == (1, int(i == 0), 0)
         assert counts == {"graph_units": 1, "eager_units": 0, "captures": int(i == 0)}
         eager = [criterion(outputs, targets) for _ in range(2)]
         want_grads = [grads(e) for e in eager]
