@@ -76,10 +76,11 @@ def make_train_step(criterion: DFINECriterion, ema_momentum: float = 0.9998,
     device. `generator` (a CPU torch.Generator) draws the denoising noise.
     metrics: total_loss, the pre-clip grad_norm and every loss term (0-d
     tensors on the device; nothing here waits for the card except the
-    matcher's one copy of the costs). Under torch.distributed each process
-    passes its rows of the global batch and the same `generator` state; the
-    loss terms are then this process's shares of the global batch's
-    (train/criterion.py), and grad_norm is the global batch's. On the card the
+    matcher's copies of the valid GT mask and of the packed costs). Under
+    torch.distributed each process passes its rows of the global batch and
+    the same `generator` state; the loss terms are then this process's
+    shares of the global batch's (train/criterion.py), and grad_norm is the
+    global batch's. On the card the
     model's front and the criterion's loss terms replay CUDA graphs kept by
     this step function, in `step.graphs` (train/graphs.py)."""
     graphs = StepGraphs(criterion)

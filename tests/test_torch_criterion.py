@@ -125,6 +125,16 @@ def _optimal(costs, assign):
     return tot
 
 
+def packed(costs, n_valid):
+    """Padded costs [S, B, Q, G] in host_solve's packed layout (each image's
+    first n_b columns as a row-major [Q, n_b] block, ops/hungarian.py), and
+    the valid mask [B, G]."""
+    S, _, _, Gn = costs.shape
+    blocks = [costs[:, b, :, :n].reshape(S, -1) for b, n in enumerate(n_valid) if n]
+    return (np.concatenate(blocks, 1) if blocks else np.zeros((S, 0), costs.dtype),
+            np.arange(Gn)[None] < np.asarray(n_valid)[:, None])
+
+
 def test_assignment_optimal_cost_matches_lapjv():
     """Costs with ties (rounded to 0.25) and without; n_valid 3, 0 and 6."""
     rng = np.random.default_rng(2)
@@ -133,7 +143,7 @@ def test_assignment_optimal_cost_matches_lapjv():
         costs = rng.uniform(0, 4, (2, B, 9, G)).astype(np.float32)
         if tied:
             costs = np.round(costs * 4) / 4
-        got = host_solve(costs, n_valid)
+        got = host_solve(*packed(costs, n_valid))
         want = np.asarray(jax.jit(batched_assignment)(jnp.asarray(costs), jnp.asarray(n_valid)))
         for s in range(2):
             for b in range(B):
@@ -145,14 +155,24 @@ def test_assignment_optimal_cost_matches_lapjv():
                                                             want, -1)), rtol=1e-6)
 
 
-def test_go_union_matches_jax():
-    """The same assignment (with repeated pairs, so the counts decide) into
-    the port's host_go_union, the JAX package's and its on-device go_union."""
+@pytest.mark.parametrize("case,n_valid", [("repeats", (3, 0, 6)), ("agree", (3, 1, 6)),
+                                          ("tied", (3, 0, 6)), ("no_gt", (0, 0, 0))])
+def test_go_union_matches_jax(case, n_valid):
+    """The same assignment into the port's host_go_union, the JAX package's
+    and its on-device go_union: with repeated pairs, so the counts decide;
+    with every set agreeing; with each pair once, so every count ties and
+    the smallest GT wins (each beside an image without GT, or with one);
+    with no GT in any image."""
     rng = np.random.default_rng(3)
-    n_valid = np.array([3, 0, 6])
-    Q = 8
-    assign = np.stack([np.stack([rng.permutation(Q)[:G] for _ in range(B)]) for _ in range(5)])
-    assign[1] = assign[0]
+    n_valid = np.array(n_valid)
+    Q, S = 8, 5
+    assign = np.stack([np.stack([rng.permutation(Q)[:G] for _ in range(B)]) for _ in range(S)])
+    if case == "repeats":
+        assign[1] = assign[0]
+    elif case == "agree":
+        assign[:] = assign[0]
+    elif case == "tied":  # set s gives GT g the query (g + s) % Q: each (q, g) once
+        assign[:] = (np.arange(G)[None, None] + np.arange(S)[:, None, None]) % Q
     assign[:, np.arange(G)[None] >= n_valid[:, None]] = -1
     got = host_go_union(assign, n_valid, Q)
     want = jhung.host_go_union(assign, n_valid, Q)

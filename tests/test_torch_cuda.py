@@ -729,3 +729,98 @@ def test_graphed_loss_terms_match_eager_terms(dev, segment):
                   f"(eager vs eager {_rel_gap(w2, w):.3e})")
             assert gap <= bound, (i, tuple(t.shape), t.dtype, gap)
         del outputs, inputs, eager
+
+
+# ------------------------------------------------- the matcher's packed costs
+
+def _padded_match(sets, targets, cfg):
+    """The matcher as it was before packing: every set's costs [S, B, Q, G]
+    with the padded GT columns at 1e6, copied whole to the host, one scipy
+    solve per set and image on the first n_b columns. -> (costs, assign)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    from custom_d_fine_tpu_torch.train import matcher
+
+    costs = []
+    for o in sets:
+        c = matcher.matching_cost(o["pred_logits"], o["pred_boxes"], targets["labels"],
+                                  targets["boxes"], cfg)
+        if o.get("pred_masks") is not None:
+            c = c + matcher.mask_matching_cost(o["pred_masks"], targets["masks"], cfg)
+        costs.append(c)
+    valid = targets["valid"]
+    costs = torch.where(valid[None, :, None, :], torch.stack(costs), 1e6).cpu().numpy()
+    costs = np.nan_to_num(costs, nan=1.0)
+    n_valid = valid.sum(-1).tolist()
+    assign = np.full(costs.shape[:2] + costs.shape[3:], -1, np.int64)
+    for s in range(costs.shape[0]):
+        for b, n in enumerate(n_valid):
+            if n:
+                rows, cols = linear_sum_assignment(costs[s, b, :, :n])
+                assign[s, b, cols] = rows
+    return costs, assign
+
+
+@pytest.mark.parametrize("segment", [False, True])
+def test_packed_match_equals_the_padded_path(dev, monkeypatch, segment):
+    """train/matcher.py:match_all_sets on D-FINE-m's shapes: 6 output sets of
+    random logits and boxes (with `segment`, mask logits at 160^2 on the
+    first 4), bs16, 300 queries, 100 GT slots holding 0, 1, 100 and COCO-like
+    counts. Detect: the assignment bitwise the padded path's, since the
+    solver sees the same values. Segment: the mask costs' GEMMs over n GT
+    rows may round otherwise than over 100 (cuBLAS picks its algorithm by
+    the width), so a near tie may flip: each (set, image)'s matching cost
+    under the padded costs equals the padded optimum within rtol 1e-5. The
+    costs and the valid mask reach the host in page-locked memory, and the
+    answer is on the card."""
+    import numpy as np
+
+    from custom_d_fine_tpu_torch.configs import get_model_config
+    from custom_d_fine_tpu_torch.train import matcher
+
+    cfg = get_model_config("m").matcher
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, Q, G, C, S, hm = 16, 300, 100, 80, 6, 160
+    n_valid = torch.tensor([0, 1, 100, 7, 3, 12, 5, 1, 9, 2, 30, 4, 6, 0, 8, 11])
+    valid = (torch.arange(G)[None] < n_valid[:, None]).to(dev)
+    targets = {"labels": torch.randint(0, C, (B, G), device=dev, generator=g),
+               "boxes": torch.cat([torch.rand(B, G, 2, device=dev, generator=g) * 0.6 + 0.2,
+                                   torch.rand(B, G, 2, device=dev, generator=g) * 0.25 + 0.05],
+                                  -1),
+               "valid": valid}
+    sets = [{"pred_logits": torch.randn(B, Q, C, device=dev, generator=g) * 2,
+             "pred_boxes": torch.rand(B, Q, 4, device=dev, generator=g) * 0.5 + 0.25}
+            for _ in range(S)]
+    if segment:
+        targets["masks"] = ((torch.rand(B, G, hm, hm, device=dev, generator=g) < 0.3)
+                            & valid[..., None, None]).to(torch.uint8)
+        for o in sets[:4]:
+            o["pred_masks"] = torch.randn(B, Q, hm, hm, device=dev, generator=g) * 3
+    pinned = []
+    host = matcher._host
+
+    def recorded(t):
+        out = host(t)
+        pinned.append(out.is_pinned())
+        return out
+
+    monkeypatch.setattr(matcher, "_host", recorded)
+    assign, go_g, go_valid = matcher.match_all_sets(sets, targets, cfg)
+    assert pinned == [True, True]
+    assert all(t.device.type == "cuda" for t in (assign, go_g, go_valid))
+    costs, want = _padded_match(sets, targets, cfg)
+    got = assign.cpu().numpy()
+    if not segment:
+        np.testing.assert_array_equal(got, want)
+        return
+    n = n_valid.tolist()
+    for s in range(S):
+        for b in range(B):
+            a, k = got[s, b], n[b]
+            assert (a[k:] == -1).all() and len(set(a[:k].tolist())) == k and (a[:k] >= 0).all()
+    total = [[[costs[s, b, x[s, b, :n[b]], np.arange(n[b])].astype(np.float64).sum()
+               for b in range(B)] for s in range(S)] for x in (got, want)]
+    flips = int((got != want).any(-1).sum())
+    print(f"segment: {flips} of {S * B} (set, image) assignments differ from the padded path's")
+    np.testing.assert_allclose(total[0], total[1], rtol=1e-5)

@@ -3,8 +3,8 @@
 tests/helpers.py:tiny_config with the mask head on (160^2, batch 2, f32,
 masks at 20^2) and one without it, under torch.profiler. Each mask span is
 recorded inside its parent as often as the step runs its code, its counts
-are the shapes' (the padded GT rows, and the valid ones on the matcher's
-copy), an eval forward records the head's span too, and a detect step
+are the shapes' (the mask costs' and the matcher's copy's over the valid
+GT rows), an eval forward records the head's span too, and a detect step
 records none of them."""
 
 from types import SimpleNamespace
@@ -96,7 +96,7 @@ def test_mask_counts_are_the_shapes(seg):
     assert counts["model.mask_head"] == [{"layers": L, "rows": L * B * (num_dn + Q),
                                           "pixels": B * px}]
     assert counts["train.match.mask_costs"] == [
-        {"sets": 1, "cells": B * Q * G * px, "gt_rows": B * G}] * L
+        {"sets": 1, "cells": Q * n * px, "gt_rows": n}] * L
     (copy,) = counts["train.match.copy"]
     assert copy["valid_gt_rows"] == n
     m_dn = num_group * seg.cfg.dn_max_gt  # the positive dn slots, all valid: each image has GT
@@ -109,13 +109,14 @@ def test_mask_counts_are_the_shapes(seg):
 
 def test_the_valid_share_of_the_mask_costs(seg):
     """Each mask cost's cells times the copy's valid GT rows over its own
-    GT rows, over its cells: the valid share of the padded GT rows."""
+    GT rows, over its cells: the valid share of the GT rows the mask costs
+    run over, all of them, since they run over the valid rows alone."""
     costs = [s for s in seg.spans if s.name == "train.match.mask_costs"]
     (copy,) = [s for s in seg.spans if s.name == "train.match.copy"]
     valid = sum(s.counts["cells"] * copy.counts["valid_gt_rows"] / s.counts["gt_rows"]
                 for s in costs)
     share = valid / sum(s.counts["cells"] for s in costs)
-    assert share == pytest.approx(N_VALID.sum() / (B * seg.cfg.max_gt))
+    assert share == 1.0
 
 
 def test_an_eval_forward_records_the_head(seg):

@@ -115,9 +115,9 @@ def one_step():
     solved = []
     solve = matcher.host_solve
 
-    def recorded(costs, n):
-        solved.append((costs.shape, costs.nbytes + n.nbytes))
-        return solve(costs, n)
+    def recorded(costs, valid):
+        solved.append((costs.shape, costs.nbytes + valid.nbytes))
+        return solve(costs, valid)
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(matcher, "host_solve", recorded)
@@ -144,18 +144,19 @@ def test_a_training_step_records_each_span_once(one_step, name):
 
 
 def test_a_training_steps_counts(one_step):
-    """The matcher's counts: the copy's bytes are the costs' and n_valid's
-    that the solve received."""
+    """The matcher's counts: the copy's bytes are the packed costs' (each
+    image's valid GT columns only) and the valid mask's that the solve
+    received, and every cell copied is a valid one."""
     assert len(one_step.spans) == len(STEP_SPANS)
     by_name = {s.name: s for s in one_step.spans}
     (shape, nbytes), = one_step.solved
     S, Q, G = one_step.cfg.decoder.num_layers + 2, one_step.cfg.decoder.num_queries, \
         one_step.cfg.max_gt
-    assert shape == (S, B, Q, G)
     n = int(one_step.n_valid.sum())
+    assert shape == (S, Q * n)
     assert by_name["train.match.copy"].counts == {
-        "bytes": nbytes, "cells": S * B * Q * G, "valid_cells": S * Q * n, "valid_gt_rows": n}
-    assert nbytes == S * B * Q * G * 4 + B * 8
+        "bytes": nbytes, "cells": S * Q * n, "valid_cells": S * Q * n, "valid_gt_rows": n}
+    assert nbytes == S * Q * n * 4 + B * G
     assert by_name["train.match.solve"].counts == {"solves": S * B}
     assert by_name["train.match.upload"].counts == {"bytes": S * B * G * 8 + B * Q * 9}
 
