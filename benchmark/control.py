@@ -15,7 +15,9 @@ precision below the configuration's bf16: the reference computed in fp8, or
 in int8, lowp.py, put in the program's place); `fault:<name>` (a fault of
 faults.py planted under the timed path). Each seed prints one JSON line of
 its readings, the seconds of its set-up, window and check, the device's
-memory peak during the program and during the check (the reference), and
+memory peak during the program and during the check (the reference), the
+program's CUDA-graph counters (`step.graphs.front` and `.loss`: units
+replayed, captured and run eagerly; null where the step has none), and
 with --profile the device ms of a program step (the busy time of a profiled
 window of 3 steps); limits are not applied. Exits 2 without a card."""
 
@@ -59,7 +61,7 @@ class TrainControl(Train):
         cfg = model_config(self.config)
         criterion = DFINECriterion(cfg.criterion, cfg.matcher,
                                    num_classes=self.config["num_classes"])
-        model = reference_model(self.config, self.seed, self.device).train()
+        model = reference_model(self.config, self.seed, self.device, self.mix["img"]).train()
         state = RefState(model, Optimizer(model, cfg, **self._opt_kw()),
                          {k: v.detach().clone() for k, v in model.state_dict().items()})
 
@@ -101,6 +103,16 @@ def parse(argv):
         p.error(f"--mode {args.mode!r}: program, control, control-int8, ref-bf16 or "
                 f"fault:<{'|'.join(STEP_FAULTS)}>")
     return args
+
+
+def graph_counters(step):
+    """The per-site counters of the port's step function, or None (the
+    reference in the program's place, a fault's wrapper)."""
+    graphs = getattr(step, "graphs", None)
+    if graphs is None:
+        return None
+    return {site: {k: getattr(getattr(graphs, site), k) for k in ("replays", "captures", "eager")}
+            for site in ("front", "loss")}
 
 
 def cell_of(args):
@@ -150,6 +162,7 @@ def main(argv=None) -> int:
             prof = profile_window(torch, three_steps)
             step_ms = prof.busy_s() / prof.units * 1e3
         peak_program = torch.cuda.max_memory_allocated()
+        graphs = graph_counters(run.step)
         run.release()
         gc.collect()
         torch.cuda.empty_cache()
@@ -164,7 +177,7 @@ def main(argv=None) -> int:
                           "worst_leaf": run.data.get("worst_leaf"), "seconds": seconds,
                           "peak_bytes": {"program": peak_program,
                                          "check": torch.cuda.max_memory_allocated()},
-                          "device_step_ms": step_ms}), flush=True)
+                          "graphs": graphs, "device_step_ms": step_ms}), flush=True)
         del run
         gc.collect()
         torch.cuda.empty_cache()

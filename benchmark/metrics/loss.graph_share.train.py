@@ -1,6 +1,6 @@
 """The share of the training steps' criterion loss terms (everything the
-criterion computes after the match:
-custom_d_fine_tpu_torch/train/loss_graphs.py) that replayed as CUDA graphs,
+criterion computes after the match, one unit of
+custom_d_fine_tpu_torch/train/graphs.py) that replayed as CUDA graphs,
 %: the sum of `graph_units` over that of `graph_units` + `eager_units` on
 the `train.loss` spans of the traced window's steps (benchmark/spans.py).
 Nothing when the program counted neither there."""

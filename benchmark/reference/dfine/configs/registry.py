@@ -1,5 +1,5 @@
-"""Typed model registry for D-FINE, cut to the sizes the benchmark runs: "m"
-(its configuration) and "n" (its CPU tests).
+"""Typed model registry for D-FINE: every size of the port's registry, n, s,
+m, l and x, so that the harness can build, run and check any of them.
 
 A copy of the port's registry, which copies the JAX package's. The values
 mirror the original torch repo's size registry (src/d_fine/configs.py:1-213)
@@ -163,6 +163,28 @@ MODELS: Dict[str, ModelConfig] = {
             dim_feedforward=512,
         ),
     ),
+    "s": _cfg(
+        "s",
+        BackboneConfig(name="B0", return_idx=(1, 2, 3), freeze_at=-1, freeze_norm=False, use_lab=True),
+        EncoderConfig(
+            in_channels=(256, 512, 1024),
+            feat_strides=(8, 16, 32),
+            hidden_dim=256,
+            use_encoder_idx=(2,),
+            dim_feedforward=1024,
+            expansion=0.5,
+            depth_mult=0.34,
+        ),
+        DecoderConfig(
+            feat_channels=(256, 256, 256),
+            feat_strides=(8, 16, 32),
+            hidden_dim=256,
+            num_levels=3,
+            num_layers=3,
+            reg_scale=4.0,
+            num_points=(3, 6, 3),
+        ),
+    ),
     "m": _cfg(
         "m",
         BackboneConfig(name="B2", return_idx=(1, 2, 3), freeze_at=-1, freeze_norm=False, use_lab=True),
@@ -183,6 +205,52 @@ MODELS: Dict[str, ModelConfig] = {
             num_levels=3,
             num_layers=4,
             reg_scale=4.0,
+            num_points=(3, 6, 3),
+        ),
+    ),
+    "l": _cfg(
+        "l",
+        BackboneConfig(name="B4", return_idx=(1, 2, 3), freeze_at=0, freeze_norm=True, use_lab=False),
+        EncoderConfig(
+            in_channels=(512, 1024, 2048),
+            feat_strides=(8, 16, 32),
+            hidden_dim=256,
+            use_encoder_idx=(2,),
+            dim_feedforward=1024,
+            expansion=1.0,
+            depth_mult=1.0,
+        ),
+        DecoderConfig(
+            feat_channels=(256, 256, 256),
+            feat_strides=(8, 16, 32),
+            hidden_dim=256,
+            dim_feedforward=1024,
+            num_levels=3,
+            num_layers=6,
+            reg_scale=4.0,
+            num_points=(3, 6, 3),
+        ),
+    ),
+    "x": _cfg(
+        "x",
+        BackboneConfig(name="B5", return_idx=(1, 2, 3), freeze_at=0, freeze_norm=True, use_lab=False),
+        EncoderConfig(
+            in_channels=(512, 1024, 2048),
+            feat_strides=(8, 16, 32),
+            hidden_dim=384,
+            use_encoder_idx=(2,),
+            dim_feedforward=2048,
+            expansion=1.0,
+            depth_mult=1.0,
+        ),
+        DecoderConfig(
+            feat_channels=(384, 384, 384),
+            feat_strides=(8, 16, 32),
+            hidden_dim=256,
+            dim_feedforward=1024,
+            num_levels=3,
+            num_layers=6,
+            reg_scale=8.0,
             num_points=(3, 6, 3),
         ),
     ),

@@ -5,6 +5,15 @@ HG_Block :189-275, HG_Stage :278-329, arch table :344-422, forward :561-568).
 The reference's freeze_norm (frozen backbone BatchNorm statistics) is the
 BatchNorm `frozen` flag, set by models/dfine.py; freeze_at is a parameter
 group of train/optim.py.
+
+Two departures from the published model (D-FINE-L and -X, the sizes with
+freeze_norm and freeze_at 0), which this file follows the JAX package and
+the port in keeping: the published model swaps its backbone norms for
+FrozenBatchNorm2d, whose scale and bias are buffers (ArgoHA hgnetv2.py:
+481-488, 547-559), where here they stay parameters that train in the
+optimizer's `backbone_norm` group; and it sets requires_grad=False on the
+frozen stem, where here the stem's gradient is computed, counted in the
+global clip norm and dropped by the optimizer (train/optim.py).
 """
 
 from __future__ import annotations
@@ -29,6 +38,15 @@ ARCH_CONFIGS = {
             [512, 128, 1024, 1, True, True, 5, 3],
         ],
     },
+    "B1": {
+        "stem_channels": [3, 24, 32],
+        "stages": [
+            [32, 32, 64, 1, False, False, 3, 3],
+            [64, 48, 256, 1, True, False, 3, 3],
+            [256, 96, 512, 2, True, True, 5, 3],
+            [512, 192, 1024, 1, True, True, 5, 3],
+        ],
+    },
     "B2": {
         "stem_channels": [3, 24, 32],
         "stages": [
@@ -36,6 +54,42 @@ ARCH_CONFIGS = {
             [96, 64, 384, 1, True, False, 3, 4],
             [384, 128, 768, 3, True, True, 5, 4],
             [768, 256, 1536, 1, True, True, 5, 4],
+        ],
+    },
+    "B3": {
+        "stem_channels": [3, 24, 32],
+        "stages": [
+            [32, 32, 128, 1, False, False, 3, 5],
+            [128, 64, 512, 1, True, False, 3, 5],
+            [512, 128, 1024, 3, True, True, 5, 5],
+            [1024, 256, 2048, 1, True, True, 5, 5],
+        ],
+    },
+    "B4": {
+        "stem_channels": [3, 32, 48],
+        "stages": [
+            [48, 48, 128, 1, False, False, 3, 6],
+            [128, 96, 512, 1, True, False, 3, 6],
+            [512, 192, 1024, 3, True, True, 5, 6],
+            [1024, 384, 2048, 1, True, True, 5, 6],
+        ],
+    },
+    "B5": {
+        "stem_channels": [3, 32, 64],
+        "stages": [
+            [64, 64, 128, 1, False, False, 3, 6],
+            [128, 128, 512, 2, True, False, 3, 6],
+            [512, 256, 1024, 5, True, True, 5, 6],
+            [1024, 512, 2048, 2, True, True, 5, 6],
+        ],
+    },
+    "B6": {
+        "stem_channels": [3, 48, 96],
+        "stages": [
+            [96, 96, 192, 2, False, False, 3, 6],
+            [192, 192, 512, 3, True, False, 3, 6],
+            [512, 384, 1024, 6, True, True, 5, 6],
+            [1024, 768, 2048, 3, True, True, 5, 6],
         ],
     },
 }

@@ -49,7 +49,9 @@ class BatchNorm(nn.BatchNorm2d):
     nn.BatchNorm2d takes the unbiased one (N/(N-1) larger, N values per
     channel). Flax momentum 0.9 is torch momentum 0.1. The batch itself is
     normalised with the biased variance in both. `frozen` (the backbone's
-    freeze_norm) keeps the running statistics in train mode too."""
+    freeze_norm) keeps the running statistics in train mode too; the scale
+    and bias still train, where the published FrozenBatchNorm2d holds them as
+    buffers (a departure, models/hgnetv2.py)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS)

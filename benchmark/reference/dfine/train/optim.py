@@ -11,6 +11,9 @@ The groups (by the port's state_dict names, the reference torch names):
   encdec_norm_bias  encoder/decoder norm + bias  base lr, no decay
   rest              everything else              base lr, weight decay
   frozen            backbone stem/stages under freeze_at: never updated
+The frozen group follows the JAX package, not the published model, which
+sets requires_grad=False on the frozen stem: here the stem's gradient is
+computed, counted in the clip norm and then dropped (models/hgnetv2.py).
 Clipping is optax's clip_by_global_norm, g * min(1, max_norm / norm) over
 every gradient (frozen ones too); it is not clip_grad_norm_, whose +1e-6
 in the divisor differs. Accumulation is

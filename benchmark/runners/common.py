@@ -90,11 +90,12 @@ def quantile(values, q: float) -> float:
     return s[min(len(s) - 1, max(0, int(-(-q * len(s) // 1)) - 1))]
 
 
-def reference_model(config: Dict[str, Any], seed: int, device) -> DFINE:
+def reference_model(config: Dict[str, Any], seed: int, device, img: int) -> DFINE:
     """The plain reference model with the run's weights, made again from the
-    seed (the program's copy was freed), in eval mode."""
+    seed (the program's copy was freed) for the traffic's image side `img`,
+    in eval mode."""
     cfg = model_config(config)
     with torch.device(device):
         model = DFINE(cfg, num_classes=config["num_classes"])
-    model.load_state_dict(make_weights(cfg, config["num_classes"], seed, device))
+    model.load_state_dict(make_weights(cfg, config["num_classes"], seed, device, img))
     return model.to(device).eval()

@@ -150,7 +150,7 @@ class Train:
 
         nc = self.config["num_classes"]
         cfg = model_config(self.config)
-        weights = make_weights(cfg, nc, self.seed, self.device)
+        weights = make_weights(cfg, nc, self.seed, self.device, self.mix["img"])
         return build_training(cfg, nc, device=self.device, bf16=self.mix["bf16"],
                               state_dict=weights, **self._opt_kw())
 
@@ -289,7 +289,7 @@ class Train:
         d = self.data
         nc = self.config["num_classes"]
         cfg = model_config(self.config)
-        model = reference_model(self.config, self.seed, self.device).train()
+        model = reference_model(self.config, self.seed, self.device, self.mix["img"]).train()
         criterion = DFINECriterion(cfg.criterion, cfg.matcher, num_classes=nc)
         optimizer = Optimizer(model, cfg, **self._opt_kw())
         state = RefState(model, optimizer, {k: v.detach().clone()
@@ -350,8 +350,9 @@ class Train:
         and every backward run under bf16 autocast in the port, so they count
         at the bf16 peak (with `bf16` off, at TF32 for convolutions and f32
         for the rest); the criterion's forward at the f32 peak; the MSDA
-        forward and backward calls at the f32 peak, from their captured
-        inputs (4 of each a step)."""
+        forward and backward calls at the f32 peak, from the first call's
+        captured inputs, once for each decoder layer (`num_layers` of each
+        a step: 4 at D-FINE-M, 6 at D-FINE-X)."""
         from torch.utils.flop_counter import FlopCounterMode
 
         with FlopCounterMode(display=False) as fc:
@@ -361,7 +362,8 @@ class Train:
         model = sum(counts.get("DFINE", {}).values())
         rest = total - model
         ker = self.data.get("kernels", {})
-        msda = 4 * sum(ker.get(k, {}).get("flops", 0.0) for k in ("msda_fwd", "msda_bwd"))
+        calls = model_config(self.config).decoder.num_layers
+        msda = calls * sum(ker.get(k, {}).get("flops", 0.0) for k in ("msda_fwd", "msda_bwd"))
         per_proc = (model / work.PEAK_BF16 + rest / work.PEAK_F32 + msda / work.PEAK_F32)
         self.data["flops"] = {"total": total, "model": model, "rest": rest, "msda": msda}
         self.data["least_s"] = per_proc

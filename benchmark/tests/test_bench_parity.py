@@ -1,8 +1,12 @@
-"""The reference (benchmark/reference) against the port on the CPU at one
-small size (D-FINE-n, 320x320), from the same weights: the forward, and one
-training step's losses and update, for task detect and, with the mask head,
-for task segment. The test imports both; the reference imports nothing of
-the port.
+"""The reference (benchmark/reference) against the port on the CPU at small
+sizes, from the same weights: the forward, and one training step's losses
+and update, for task detect and, with the mask head, for task segment, at
+D-FINE-n 320x320; and for task detect at D-FINE-x 160x160 (bs2), the paths
+that D-FINE-n and -m never take: frozen backbone norms with the calibrated
+statistics of benchmark/weights.py, the frozen stem's optimizer group, no
+learnable affine blocks, HGNetv2-B5, the decoder's 1x1 conv + BatchNorm
+input projections (384 -> 256), 6 decoder layers and reg_scale 8. The test
+imports both; the reference imports nothing of the port.
 
 Tolerances: the forward's outputs (the eval forward's, and every mask set
 of the train forward) to rtol 1e-4, atol 1e-5, and the loss terms to rtol
@@ -32,10 +36,15 @@ from benchmark.weights import make_weights
 
 CONFIG = {"model_name": "n", "task": "detect", "num_classes": 80, "img_size": [320, 320]}
 SEGMENT = dict(CONFIG, task="segment")
+FROZEN_X = dict(CONFIG, model_name="x", img_size=[160, 160])
+
+
+def _img(config):
+    return config["img_size"][0]
 
 
 def _weights(seed=3, config=CONFIG):
-    return make_weights(model_config(config), 80, seed, torch.device("cpu"))
+    return make_weights(model_config(config), 80, seed, torch.device("cpu"), _img(config))
 
 
 def _ref_model(w, config=CONFIG):
@@ -48,29 +57,44 @@ def _port_model(w, config=CONFIG):
     from custom_d_fine_tpu_torch.configs import get_model_config
     from custom_d_fine_tpu_torch.models.dfine import DFINE as PortDFINE
 
-    port = PortDFINE(get_model_config("n", enable_mask_head=config["task"] == "segment"),
+    port = PortDFINE(get_model_config(config["model_name"],
+                                      enable_mask_head=config["task"] == "segment"),
                      num_classes=80)
     port.load_state_dict(w)
     return port
 
 
 def _batch(config=CONFIG, seed=5):
-    mix = dict(load_json(HERE / "traffic" / "train.json"), batch=2, img=320, pool=1,
+    img = _img(config)
+    mix = dict(load_json(HERE / "traffic" / "train.json"), batch=2, img=img, pool=1,
                masks=config["task"] == "segment")
-    return mix, train_pool(mix, seed, 80, "cpu", mask_size(config, 320))[0]
+    return mix, train_pool(mix, seed, 80, "cpu", mask_size(config, img))[0]
+
+
+def _uniform_images():
+    return torch.rand((2, 3, 320, 320), generator=torch.Generator().manual_seed(0))
+
+
+def _pool_images(config):
+    """The traffic's images, as the step feeds them: a front calibrated on
+    the generator's images keeps its features normalised on these."""
+    return (_batch(config)[1]["images"].float() / 255.0).permute(0, 3, 1, 2).contiguous()
 
 
 def test_forward_matches_the_port():
-    _forward_matches(CONFIG, ("pred_logits", "pred_boxes"))
+    _forward_matches(CONFIG, ("pred_logits", "pred_boxes"), _uniform_images())
 
 
 def test_segment_eval_forward_matches_the_port():
-    _forward_matches(SEGMENT, ("pred_logits", "pred_boxes", "pred_masks"))
+    _forward_matches(SEGMENT, ("pred_logits", "pred_boxes", "pred_masks"), _uniform_images())
 
 
-def _forward_matches(config, keys):
+def test_frozen_front_forward_matches_the_port():
+    _forward_matches(FROZEN_X, ("pred_logits", "pred_boxes"), _pool_images(FROZEN_X))
+
+
+def _forward_matches(config, keys, x):
     w = _weights(config=config)
-    x = torch.rand((2, 3, 320, 320), generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         got, want = _port_model(w, config).eval()(x), _ref_model(w, config).eval()(x)
     assert sorted(got) == sorted(want) == sorted(keys)
@@ -118,7 +142,22 @@ def test_segment_training_step_matches_the_port():
     assert len([k for k in terms if k.startswith("loss_mask_")]) == 2 * 6
 
 
-def _one_step_matches(config):
+def test_frozen_front_training_step_matches_the_port():
+    """D-FINE-x: besides the losses and the update, the frozen stem stays
+    where it was on both sides, and the frozen norms' statistics too. The
+    reference's convolutions run in the port's channels_last layout here: at
+    this size X's step carries the summation order of its convolutions into
+    the matched sets' terms at ~1e-3 and the gradient norm at ~7e-3, as the
+    reference against itself in the two layouts reads (1.3e-3 and 7.2e-3 on
+    the CPU), where the port against the reference in one layout agrees to
+    the bit in every loss term. The layout changes no operation's
+    mathematics, only the order of its sums."""
+    terms = _one_step_matches(FROZEN_X, channels_last=True)
+    # the final set's terms and, per set, those of 5 aux, 6 dn, pre, enc, dn_pre
+    assert len([k for k in terms if k.startswith("loss_vfl")]) == 1 + 5 + 6 + 3
+
+
+def _one_step_matches(config, channels_last=False):
     from custom_d_fine_tpu_torch.train.train_step import build_training
 
     mix, batch = _batch(config)
@@ -129,6 +168,8 @@ def _one_step_matches(config):
     _, got = step(state, batch, torch.Generator().manual_seed(9))
 
     model = _ref_model(w, config).train()
+    if channels_last:
+        model = model.to(memory_format=torch.channels_last)
     ref = RefState(model, Optimizer(model, cfg, **opt),
                    {k: v.clone() for k, v in model.state_dict().items()})
     want = train_step(ref, DFINECriterion(cfg.criterion, cfg.matcher, 80), batch,
@@ -147,6 +188,14 @@ def _one_step_matches(config):
     for (k, p), q in zip(state.model.named_parameters(), model.parameters()):
         lr = 2 * opt["base_lr"]
         assert (p.detach() - q.detach()).abs().max() <= lr, k
+    # what the step must leave as it was: the frozen optimizer group (the stem
+    # under freeze_at 0) and the frozen norms' running statistics
+    frozen = [k for k in w if k.startswith("backbone.") and
+              (k.startswith("backbone.stem.") and cfg.backbone.freeze_at >= 0 or
+               cfg.backbone.freeze_norm and k.endswith(("running_mean", "running_var")))]
+    assert bool(frozen) == (cfg.backbone.freeze_at >= 0 or cfg.backbone.freeze_norm)
+    for sd in (state.model.state_dict(), model.state_dict()):
+        assert all(torch.equal(sd[k], w[k]) for k in frozen)
     return want
 
 

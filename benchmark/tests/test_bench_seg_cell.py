@@ -125,4 +125,6 @@ def test_the_cell_is_train_with_masks_and_reports_the_new_metrics():
     assert cell.config["task"] == "segment" and cell.traffic["masks"] is True
     assert {k: v for k, v in cell.traffic.items() if k not in ("about", "masks")} == \
         {k: v for k, v in train.items() if k != "about"}
-    assert [m["name"] for m in cell.per_layer] == list(NEW)
+    # the cell's two metrics, then the criterion's graph share, which
+    # BENCHMARK.json gives both cells
+    assert [m["name"] for m in cell.per_layer] == [*NEW, "loss.graph_share.train"]

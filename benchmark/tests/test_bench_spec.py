@@ -127,3 +127,23 @@ SEGMENT_M = dict(DETECT_M, task="segment",
         "segment-width", "segment-without-mask-losses", "other-task"])
 def test_the_registry_rule_fails_a_file_that_departs(f, faults):
     assert registry_faults(f) == faults
+
+
+@pytest.mark.parametrize("size", ["n", "s", "m", "l", "x"])
+def test_both_registries_hold_the_size_alike(size):
+    """The reference's registry holds every size of the port's, field by
+    field, so that the harness can run any of them."""
+    from custom_d_fine_tpu_torch.configs import get_model_config as port_config
+    from custom_d_fine_tpu_torch.configs.registry import MODELS as PORT_MODELS
+    from benchmark.reference.dfine.configs.registry import MODELS
+
+    assert list(MODELS) == list(PORT_MODELS)
+    assert config_dict(ref_config(size)) == config_dict(port_config(size))
+
+
+def test_both_hgnetv2_tables_are_equal():
+    from custom_d_fine_tpu_torch.models.hgnetv2 import ARCH_CONFIGS as PORT
+    from benchmark.reference.dfine.models.hgnetv2 import ARCH_CONFIGS
+
+    assert list(ARCH_CONFIGS) == [f"B{i}" for i in range(7)]
+    assert ARCH_CONFIGS == PORT

@@ -23,22 +23,38 @@ convs and the MLP, kaiming normal with fan_out for up_conv, GroupNorm (1, 0));
 its convs keep that scale, since each feeds a GroupNorm that undoes it. So
 a detect model's draws are the same with or without this rule, and a segment
 model's other leaves equal the detect model's of the same seed.
+
+Where the configuration freezes the backbone's norms (`backbone.freeze_norm`:
+D-FINE-L and -X), the BatchNorms normalise with their running statistics in
+training too, and those statistics have to be a pretrained front's: D-FINE-X
+trains from a pretrained HGNetv2-B5 whose frozen statistics normalise its
+features, while statistics of (0, 1) leave its stage outputs at a std of
+~10^2-10^3 (benchmark/tests/test_bench_weights.py). So after the draws one
+calibration pass (`_calibrate_frozen_norms`) sets each frozen norm's
+running mean and variance to the statistics of its own input over a batch of
+the generator's images (generate.py) at the traffic's image size, drawn from
+a generator of their own. It draws nothing from the weights' generator, so
+the draws above are the same with or without it, and a configuration without
+frozen norms gets exactly what it got before.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .generate import _images
 from .reference.dfine.configs import ModelConfig
 from .reference.dfine.models.dfine import DFINE, _msda_offset_bias
-from .reference.dfine.models.layers import MultiHeadAttention, bias_init_with_prob
+from .reference.dfine.models.layers import BatchNorm, MultiHeadAttention, bias_init_with_prob
 
 CONV_SCALE = math.sqrt(6.0)
+CALIBRATION_IMAGES = 8  # images in the frozen norms' calibration batch
+CALIBRATION_STREAM = 0x5EEDCA1B  # the calibration's generator: seed ^ this, not the draws'
 
 
 def _fan_in(w: torch.Tensor) -> int:
@@ -117,11 +133,47 @@ def _fill(leaves: List[Tuple[torch.Tensor, float]], flat: torch.Tensor) -> None:
                                                   zip(parts, leaves)])
 
 
+def calibration_images(seed: int, img: int, device) -> torch.Tensor:
+    """The frozen norms' calibration batch for `seed`: CALIBRATION_IMAGES of
+    the generator's images at img x img, as the step feeds them (NCHW f32
+    in [0, 1])."""
+    gen = torch.Generator(device=device).manual_seed(int(seed) ^ CALIBRATION_STREAM)
+    images = _images(CALIBRATION_IMAGES, img, img, gen, device)
+    return (images.float() / 255.0).permute(0, 3, 1, 2).contiguous()
+
+
 @torch.no_grad()
-def make_weights(cfg: ModelConfig, num_classes: int, seed: int,
-                 device: torch.device) -> Dict[str, torch.Tensor]:
+def _calibrate_frozen_norms(model: DFINE, seed: int, img: int, device) -> None:
+    """Set each frozen BatchNorm's running statistics to the batch statistics
+    of its own input over the calibration batch, in one train-mode pass of the
+    backbone with the `frozen` flags off and momentum 1 (so the running mean
+    is the batch mean, and the running variance the biased batch variance by
+    the rule of the reference's BatchNorm); each norm normalises the batch as
+    it will with the statistics it keeps, so every later norm sees the input
+    that it will see. The flags, momenta and batch counts come back after it.
+    The convolutions run in f32 without TF32, as the reference does."""
+    from .runners.common import strict_fp32  # which imports this module
+
+    norms = [m for m in model.backbone.modules() if isinstance(m, BatchNorm) and m.frozen]
+    saved = [(m.momentum, m.num_batches_tracked.clone()) for m in norms]
+    try:
+        for m in norms:
+            m.frozen, m.momentum = False, 1.0
+        with strict_fp32():
+            model.backbone.train()(calibration_images(seed, img, device))
+    finally:
+        for m, (momentum, count) in zip(norms, saved):
+            m.frozen, m.momentum = True, momentum
+            m.num_batches_tracked.copy_(count)
+
+
+@torch.no_grad()
+def make_weights(cfg: ModelConfig, num_classes: int, seed: int, device: torch.device,
+                 img: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The model's state_dict (f32, on `device`) for `seed`: the same seed
-    gives the same tensors on the same device type."""
+    gives the same tensors on the same device type. `img`, the traffic's
+    image side, is needed where the backbone's norms are frozen: their
+    statistics are calibrated at that size."""
     with torch.device(device):
         model = DFINE(cfg, num_classes=num_classes)  # constants from the modules' own init
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -146,4 +198,9 @@ def make_weights(cfg: ModelConfig, num_classes: int, seed: int,
         layer.cross_attn.sampling_offsets.bias.copy_(grid)
     if hasattr(dec, "denoising_class_embed"):
         dec.denoising_class_embed.weight[-1].zero_()
+    if cfg.backbone.freeze_norm:
+        if img is None:
+            raise ValueError("frozen backbone norms are calibrated at the traffic's image "
+                             "size: pass img")
+        _calibrate_frozen_norms(model, seed, img, device)
     return {k: v.detach() for k, v in model.state_dict().items()}
